@@ -1,0 +1,505 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card (an H100 for sm_90a).
+
+    python3 chip_smoke.py
+
+from the repository root. Phases, each of which ends the run with a
+non-zero exit if it fails:
+
+1. toolchain: torch / CUDA versions, nvcc, whether triton imports, the
+   card's name and power limit (nvidia-smi);
+2. builds every hand-written kernel from ``csrc/`` with nvcc, in parallel;
+3. kernel K1 (the face-crop warp, ``warp_align``) against its plain PyTorch
+   version on the card: 16 synthetic 1080p frames and 320 crops covering
+   rotations to 180 deg, scales 0.2-4, partly and wholly off-frame crops,
+   degenerate and NaN matrices, plus frames narrower than 512 px; max abs
+   error in u8 units and kernel / plain / affine_grid + grid_sample / bound
+   times;
+4. the main path at full width: FacePipeline with det_10g + w600k_r50
+   (seeded weights) on the card, a gallery of 128, 8 synthetic 1080p
+   frames, three calls with max_num=10 and process_stream over two
+   batches, with the kernel's launch count reset just before and read just
+   after, per-stage CUDA-event times and the kernel's times at the shapes
+   this path gave it;
+5. the port on the card against the port on the CPU (small seeded config,
+   TF32 off for convolutions and matmuls);
+6. one JSON line of every kernel's numbers.
+
+The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
+without the package beside it, the script exits non-zero and prints no
+result.
+"""
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+TOL_U8 = 1e-3          # kernel vs plain, in u8 units (both round alike)
+DEV = "cuda"
+# phase sizes: (frames, height, width, crops) for phase 3; the main path's
+# models, frame batch and frame size for phase 4
+K1_CASE = (16, 1080, 1920, 320)
+MAIN = dict(det="det_10g", rec="w600k_r50", frames=8, hw=(1080, 1920),
+            max_num=10, gallery=128)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+WARP_FLOPS_PER_PIXEL = 60   # coordinates, weights, 12 taps, normalize
+
+
+def fail(msg):
+    raise RuntimeError(msg)
+
+
+def card_line():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+class Report:
+    def __init__(self, card):
+        self.card = card
+
+    def say(self, msg):
+        print(f"{msg}  [{self.card}]", flush=True)
+
+
+def time_ms(torch, fn, iters=10, flush_bytes=64 << 20):
+    """Mean device time of fn() over ``iters`` launches, each after a
+    write that flushes the 50 MB L2, so every launch finds it cold. A
+    device-side spin (about 5 ms) after the flush keeps the card busy
+    while the host enqueues fn(), so the host's launch overhead is not
+    counted as device time unless fn() takes longer than that to enqueue."""
+    scratch = torch.empty(flush_bytes, dtype=torch.uint8, device=DEV)
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        scratch.zero_()
+        torch.cuda._sleep(10_000_000)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        total += s.elapsed_time(e)
+    return total / iters
+
+
+def synthetic_frames(torch, rng, b, h, w):
+    """Smooth u8 BGR frames (B, H, W, 3) on the card from a numpy seed."""
+    base = torch.from_numpy(rng.uniform(0, 255, (b, 3, max(h // 16, 2),
+                                                 max(w // 16, 2)))
+                            .astype(np.float32)).to(DEV)
+    big = torch.nn.functional.interpolate(base, size=(h, w), mode="bilinear",
+                                          align_corners=False)
+    return big.round().clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1
+                                                            ).contiguous()
+
+
+def warp_matrices(rng, n, h, w):
+    """(n, 2, 3) src -> dst similarities: scale 0.2-4 source px per crop px,
+    any rotation, centers up to 30 % outside the frame; then a singular
+    matrix, a NaN one and a wholly off-frame one."""
+    ms = np.zeros((n, 2, 3), np.float32)
+    for i in range(n):
+        sigma = rng.uniform(0.2, 4.0)
+        ang = rng.uniform(-np.pi, np.pi)
+        cx = rng.uniform(-0.3 * w, 1.3 * w)
+        cy = rng.uniform(-0.3 * h, 1.3 * h)
+        rot = np.array([[np.cos(ang), -np.sin(ang)],
+                        [np.sin(ang), np.cos(ang)]]) / sigma
+        ms[i, :, :2] = rot
+        ms[i, :, 2] = np.array([55.5, 55.5]) - rot @ np.array([cx, cy])
+    ms[0] = 0.0
+    ms[1, :, 2] = np.nan
+    ms[2] = [[1, 0, -1e6], [0, 1, 0]]
+    return ms
+
+
+def tap_coords(torch, minv, oh=112, ow=112):
+    gy, gx = torch.meshgrid(torch.arange(oh, dtype=torch.float32,
+                                         device=minv.device),
+                            torch.arange(ow, dtype=torch.float32,
+                                         device=minv.device), indexing="ij")
+    sx = (minv[:, 0, 0, None, None] * gx + minv[:, 0, 1, None, None] * gy
+          + minv[:, 0, 2, None, None])
+    sy = (minv[:, 1, 0, None, None] * gx + minv[:, 1, 1, None, None] * gy
+          + minv[:, 1, 2, None, None])
+    return sx, sy
+
+
+def warp_bound(torch, frames, minv, frame_idx):
+    """Least time for K1's work: every distinct source byte the crops touch
+    read once, the f32 crops written once, the matrices and indices read;
+    or the arithmetic at the fp32 rate, whichever is larger."""
+    b, h, w, _ = frames.shape
+    f = minv.shape[0]
+    sx, sy = tap_coords(torch, minv)
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    base = frame_idx.to(torch.int64)[:, None, None] * h
+    lins = []
+    for dy in (0.0, 1.0):
+        for dx in (0.0, 1.0):
+            xt, yt = x0 + dx, y0 + dy
+            inside = (xt >= 0) & (xt <= w - 1) & (yt >= 0) & (yt <= h - 1)
+            lin = (base + torch.where(inside, yt, 0).to(torch.int64)) * w \
+                + torch.where(inside, xt, 0).to(torch.int64)
+            lins.append(lin[inside])
+    distinct = int(torch.unique(torch.cat(lins)).numel())
+    nbytes = distinct * 3 + f * 3 * 112 * 112 * 4 + f * 6 * 4 + f * 4
+    flops = f * 112 * 112 * WARP_FLOPS_PER_PIXEL
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations"), nbytes
+
+
+def grid_sample_yardstick(torch, frames, minv, frame_idx):
+    """``affine_grid`` + ``grid_sample`` (bilinear, zero padding) computing
+    the same crops, timed as a yardstick only: frames pre-converted to f32
+    NCHW, each frame's crops stacked along the output height (padded with
+    empty crops to one count per frame) so one call serves the batch; no
+    normalize, no channel swap. Returns the call and its (F, 112, 112, 3)
+    crops in the caller's order, for a sanity check."""
+    nnf = torch.nn.functional
+    b, h, w, _ = frames.shape
+    src = frames.permute(0, 3, 1, 2).to(torch.float32).contiguous()
+    fi = frame_idx.cpu().numpy()
+    per = max(int(np.bincount(fi, minlength=b).max()), 1)
+    slot = np.zeros(len(fi), np.int64)
+    seen = np.zeros(b, np.int64)
+    for i, fr in enumerate(fi):
+        slot[i], seen[fr] = seen[fr], seen[fr] + 1
+    rows = torch.from_numpy(fi * per + slot).to(minv.device)
+    # output pixel j = 56 * x_n + 55.5 (align_corners=False); source
+    # x_n = (2 * sx + 1) / w - 1, with sx = m00 * j + m01 * i + m02
+    theta = torch.zeros((b * per, 2, 3), device=minv.device)
+    theta[:, :, 2] = 4.0                       # padding crops sample nothing
+    for r, size in ((0, w), (1, h)):
+        m0, m1, m2 = minv[:, r, 0], minv[:, r, 1], minv[:, r, 2]
+        theta[rows, r, 0] = 2 / size * m0 * 56
+        theta[rows, r, 1] = 2 / size * m1 * 56
+        theta[rows, r, 2] = 2 / size * (m0 * 55.5 + m1 * 55.5 + m2) \
+            + 1 / size - 1
+
+    def call():
+        grid = nnf.affine_grid(theta, (b * per, 3, 112, 112),
+                               align_corners=False)
+        return nnf.grid_sample(src, grid.view(b, per * 112, 112, 2),
+                               mode="bilinear", padding_mode="zeros",
+                               align_corners=False)
+
+    out = call().view(b, 3, per, 112, 112).permute(0, 2, 3, 4, 1)
+    return call, out.reshape(b * per, 112, 112, 3)[rows]
+
+
+def compare_k1(torch, wa, frames, minv, frame_idx):
+    """Kernel vs plain on the same card tensors: same NaN positions, and
+    the max abs difference of the rest in u8 units."""
+    got = wa.warp_align_crops(frames, minv, frame_idx)
+    want = wa.warp_align_plain(frames, minv, frame_idx)
+    torch.cuda.synchronize()
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        fail("warp_align: NaN pattern differs from the plain version")
+    fin = ~torch.isnan(want)
+    err = float((got[fin] - want[fin]).abs().max()) * 127.5 if fin.any() else 0.0
+    if not err <= TOL_U8:
+        fail(f"warp_align: max abs err {err} u8 > {TOL_U8}")
+    return err, got
+
+
+def k1_times(torch, wa, frames, minv, frame_idx):
+    ms = time_ms(torch, lambda: wa.warp_align_crops(frames, minv, frame_idx))
+    plain_ms = time_ms(torch, lambda: wa.warp_align_plain(frames, minv,
+                                                          frame_idx))
+    lib_call, _ = grid_sample_yardstick(torch, frames, minv, frame_idx)
+    lib_ms = time_ms(torch, lib_call)
+    bound_ms, bound_by, nbytes = warp_bound(torch, frames, minv, frame_idx)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+
+
+class StageTimer:
+    """Stage hook: CUDA events around every pipeline stage."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.events = []
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        s = self.torch.cuda.Event(enable_timing=True)
+        e = self.torch.cuda.Event(enable_timing=True)
+        s.record()
+        try:
+            yield
+        finally:
+            e.record()
+            self.events.append((name, s, e))
+
+    def totals(self):
+        self.torch.cuda.synchronize()
+        out = {}
+        for name, s, e in self.events:
+            out[name] = out.get(name, 0.0) + s.elapsed_time(e)
+        return out
+
+
+def phase_kernel_vs_plain(torch, wa, rep):
+    rng = np.random.default_rng(0)
+    nb, h, w, nc = K1_CASE
+    frames = synthetic_frames(torch, rng, nb, h, w)
+    ms = warp_matrices(rng, nc, h, w)
+    fidx = rng.permutation(np.arange(nc) % nb).astype(np.int32)
+    minv = wa_inputs(torch, ms)
+    fidx_t = torch.from_numpy(fidx).to(DEV)
+    err, got = compare_k1(torch, wa, frames, minv, fidx_t)
+    n_nan = int(torch.isnan(got).flatten(1).all(1).sum())
+    if n_nan < 2:
+        fail("the degenerate crops did not come out NaN")
+    rep.say(f"K1 vs plain, {nb}x{h}x{w} frames, {nc} crops (scale 0.2-4, any "
+            f"rotation, off-frame, {n_nan} degenerate/NaN crops): "
+            f"max_abs_err {err:.6g} u8 (tolerance {TOL_U8})")
+    # frames narrower than the TPU kernel's 512-px window
+    frames_n = synthetic_frames(torch, rng, 4, 300, 400)
+    ms_n = warp_matrices(rng, 40, 300, 400)
+    fidx_n = torch.from_numpy(rng.integers(0, 4, 40).astype(np.int32)).to(DEV)
+    err_n, _ = compare_k1(torch, wa, frames_n, wa_inputs(torch, ms_n), fidx_n)
+    rep.say(f"K1 vs plain, 4x(300x400) frames, 40 crops: max_abs_err "
+            f"{err_n:.6g} u8")
+    t = k1_times(torch, wa, frames, minv, fidx_t)
+    _, lib_crops = grid_sample_yardstick(torch, frames, minv, fidx_t)
+    plain = wa.warp_align_plain(frames, minv, fidx_t)
+    plain_u8 = (plain * 127.5 + 127.5).permute(0, 2, 3, 1).flip(-1)
+    fin = torch.isfinite(plain_u8) & torch.isfinite(lib_crops)
+    lib_err = float((plain_u8[fin] - lib_crops[fin]).abs().max())
+    rep.say(f"K1 times at {nb}x{h}x{w} / {nc} crops: kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, affine_grid + grid_sample "
+            f"{t['library_ms']:.4f} ms (its max diff from the plain crops "
+            f"{lib_err:.4g} u8), "
+            f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
+            f"({t['bytes']} B at 3.35 TB/s)")
+    return max(err, err_n)
+
+
+def wa_inputs(torch, ms):
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+
+    return ops.invert_affine(torch.from_numpy(ms).to(DEV)).contiguous()
+
+
+def phase_main_path(torch, rep):
+    from scrfd_arcface_facerecognition_tpu_torch import FacePipeline, stages
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.pipeline.embedder import (
+        crop_matrices)
+    from scrfd_arcface_facerecognition_tpu_torch.pipeline.face_pipeline import (
+        bucket_slots)
+
+    t0 = time.perf_counter()
+    nb, (h, w), max_num, ng = (MAIN["frames"], MAIN["hw"], MAIN["max_num"],
+                               MAIN["gallery"])
+    pipe = FacePipeline(det_variant=MAIN["det"], rec_variant=MAIN["rec"],
+                        gallery_capacity=ng, seed=0, device=DEV)
+    rng = np.random.default_rng(0)
+    pipe.set_gallery(rng.normal(size=(ng, 512)).astype(np.float32),
+                     [f"p{i}" for i in range(ng)])
+    frames = torch.from_numpy(rng.integers(0, 255, (nb, h, w, 3),
+                                           dtype=np.uint8)).to(DEV)
+    frames2 = torch.from_numpy(rng.integers(0, 255, (nb, h, w, 3),
+                                            dtype=np.uint8)).to(DEV)
+    pipe(frames, max_num=max_num)            # warm-up (cuDNN, allocator)
+    torch.cuda.synchronize()
+    rep.say(f"main path: {MAIN['det']} + {MAIN['rec']} seeded on "
+            f"{pipe.device}, {nb}x{h}x{w} frames, gallery {ng}; setup + "
+            f"warm-up {time.perf_counter() - t0:.2f} s")
+
+    timer = StageTimer(torch)
+    wa.launches = 0
+    stages.set_stage_hook(timer)
+    call_ms, outs = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        out = pipe(frames, max_num=max_num)
+        torch.cuda.synchronize()
+        call_ms.append((time.perf_counter() - t) * 1e3)
+        outs.append(out)
+    stage_ms = timer.totals()
+    stream = list(pipe.process_stream([frames, frames2], max_num=max_num))
+    torch.cuda.synchronize()
+    stages.set_stage_hook(None)
+    launches = wa.launches
+
+    if launches == 0:
+        fail("main path launched the warp kernel no time")
+    for o in outs + stream:
+        faces = int(o.valid.sum())
+        if faces <= 0:
+            fail("main path found no faces")
+        if o.embeddings.shape != (nb, max_num, 512):
+            fail(f"embeddings shape {tuple(o.embeddings.shape)}")
+        ev = o.embeddings[o.valid]
+        if not bool(torch.isfinite(ev).all()):
+            fail("non-finite embeddings on valid slots")
+        norms = ev.norm(dim=-1)
+        if not bool(((norms - 1).abs() < 1e-3).all()):
+            fail("valid embeddings are not unit-norm")
+        if not bool((o.embeddings[~o.valid] == 0).all()):
+            fail("invalid slots carry embeddings")
+    faces = int(outs[-1].valid.sum())
+    rep.say(f"main path: faces found {faces} per {nb}-frame call, "
+            f"{int(stream[0].valid.sum())}/{int(stream[1].valid.sum())} in the "
+            f"stream; K1 launches {launches} over 3 calls + 2 stream batches; "
+            f"embeddings finite and unit-norm on valid slots; "
+            f"matches {int((outs[-1].match_idx >= 0).sum())}")
+    rep.say(f"main path: ms per {nb}x{h}x{w} call " + ", ".join(
+        f"{m:.2f}" for m in call_ms) + f" (median {sorted(call_ms)[1]:.2f})")
+    rep.say("main path per-stage device ms (mean of 3 calls): " + ", ".join(
+        f"{k} {stage_ms.get(k, 0.0) / 3:.3f}" for k in stages.STAGES))
+
+    # the kernel at the shapes this path gave it (last call)
+    o = outs[-1]
+    b, k = o.valid.shape
+    bucket = pipe._round_bucket(faces, b * k)
+    sel, fidx = bucket_slots(o.valid, bucket)
+    minv = crop_matrices(o.kps.reshape(b * k, 5, 2)[sel])
+    err, _ = compare_k1(torch, wa, frames, minv, fidx)
+    t = k1_times(torch, wa, frames, minv, fidx)
+    rep.say(f"K1 at the main path's shapes ({nb}x{h}x{w}, {bucket} crops): "
+            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"affine_grid + grid_sample {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} "
+            f"ms by {t['bound_by']} ({t['bytes']} B), max_abs_err {err:.6g} u8")
+    return launches, err, t
+
+
+def phase_card_vs_cpu(torch, rep):
+    from scrfd_arcface_facerecognition_tpu_torch.models.arcface import (
+        ArcFaceConfig)
+    from scrfd_arcface_facerecognition_tpu_torch.models.scrfd import (
+        SCRFDConfig)
+    from scrfd_arcface_facerecognition_tpu_torch.pipeline import (
+        Detector, Embedder, FacePipeline)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det_cfg = SCRFDConfig("small_det", 16, (1, 2, 1, 1), (16, 16, 32, 48),
+                          neck_filters=16, head_stacks=2, head_filters=32,
+                          gn_groups=8)
+    emb_cfg = ArcFaceConfig("small_r", "iresnet", emb_dim=128,
+                            stage_blocks=(1, 2, 2, 1),
+                            stage_filters=(16, 32, 64, 64))
+    rng = np.random.default_rng(1)
+    frames = synthetic_frames(torch, rng, 2, 240, 320).cpu().numpy()
+    gallery = rng.normal(size=(8, 128)).astype(np.float32)
+
+    def build(device):
+        det = Detector(config=det_cfg, input_size=(320, 320), seed=3,
+                       conf_thres=0.5, pre_nms=64, max_det=8, device=device)
+        emb = Embedder(config=emb_cfg, seed=4, device=device)
+        return FacePipeline(detector=det, embedder=emb, gallery_capacity=16,
+                            similarity_thresh=0.3, device=device)
+
+    cpu, gpu = build("cpu"), build(DEV)
+    first = cpu(frames, max_num=4)
+    valid = first.valid.numpy()
+    gal = np.concatenate([gallery, first.embeddings.numpy()[valid]], 0)
+    for p in (cpu, gpu):
+        p.set_gallery(gal, [str(i) for i in range(len(gal))])
+    want = cpu(frames, max_num=4)
+    got = [t.cpu() for t in gpu(frames, max_num=4)]
+    tb, ts, tk, tv, tc, te, ti, tm = got
+    if int(want.valid.sum()) == 0:
+        fail("card-vs-CPU phase found no faces")
+    if not (torch.equal(tv, want.valid) and torch.equal(tc, want.count)
+            and torch.equal(ti, want.match_idx)):
+        fail("card vs CPU: valid/count/match_idx differ")
+    db = float((tb - want.boxes).abs().max())
+    dk = float((tk - want.kps).abs().max())
+    ds = float((ts - want.scores).abs().max())
+    dm = float((tm - want.match_sim).abs().max())
+    a, b = te[tv], want.embeddings[tv]
+    cos = float(((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min())
+    if not (db <= 1e-2 and dk <= 1e-2 and ds <= 1e-4 and dm <= 1e-4
+            and cos >= 0.9999):
+        fail(f"card vs CPU out of tolerance: boxes {db} kps {dk} scores {ds} "
+             f"match_sim {dm} cos {cos}")
+    rep.say(f"card vs CPU (TF32 off), {int(tv.sum())} faces, "
+            f"{int((ti >= 0).sum())} matches: valid/count/match_idx equal; "
+            f"max |d| boxes {db:.3g} px, kps {dk:.3g} px, scores {ds:.3g}, "
+            f"match_sim {dm:.3g}; min embedding cosine {cos:.7f}")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    repo = os.path.dirname(os.path.abspath(__file__))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    from scrfd_arcface_facerecognition_tpu_torch import cuda_build
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    t_start = time.perf_counter()
+    card = card_line()
+    rep = Report(card)
+    # 1. toolchain
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"torch CUDA {torch.version.cuda}, device "
+          f"{torch.cuda.get_device_name(0)}")
+    nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"],
+                          capture_output=True, text=True, timeout=60)
+    print("nvcc: " + nvcc.stdout.strip().splitlines()[-1])
+    try:
+        import triton
+        print(f"triton {triton.__version__} imports")
+    except ImportError:
+        print("triton does not import")
+    print(f"card: {card}")
+
+    # 2. build
+    secs = cuda_build.build_all()
+    rep.say("built " + ", ".join(f"{n} in {s:.2f} s" for n, s in secs.items())
+            + " (nvcc, sm_90a)")
+
+    # 3. K1 against its plain version
+    err3 = phase_kernel_vs_plain(torch, wa, rep)
+
+    # 4. the main path at full width
+    launches, err4, t = phase_main_path(torch, rep)
+
+    # 5. card vs CPU
+    phase_card_vs_cpu(torch, rep)
+
+    # 6. kernels
+    kernels = [{
+        "name": wa.NAME, "route": "cuda",
+        "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/warp_align.cu",
+        "replaces": "scrfd_arcface_facerecognition_tpu/ops/pallas_warp.py:430",
+        "launches": launches, "max_abs_err": max(err3, err4),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    }]
+    rep.say(f"chip_smoke done in {time.perf_counter() - t_start:.1f} s")
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
