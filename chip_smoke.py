@@ -23,7 +23,25 @@ non-zero exit if it fails:
    this path gave it;
 5. the port on the card against the port on the CPU (small seeded config,
    TF32 off for convolutions and matmuls);
-6. one JSON line of every kernel's numbers.
+6. kernel K2 (the PQ distance scorer, ``pq_adc``) against its plain
+   PyTorch version on the card, in both precisions: Q in {1, 3, 16, 80}
+   queries, G in {0, 1, 4097, 2,000,000} code rows, K in {16, 256}, M=64
+   and M=12, NaN and inf LUT entries; max abs difference relative to the
+   largest |score| (tolerance 1e-6, expected 0) and the same NaN / inf
+   positions;
+7. the gallery path at full width: the main path's embeddings are the
+   queries; AutoGallery(tier="pq") on the card takes 1,000,000 synthetic
+   identity rows (the embeddings among them at known ids) in one
+   add_batch, migrates (codec training, encoding, a 2,000,000-row
+   PQGallery) and answers search_batch(k=5) with K2's launch count reset
+   just before and read just after; recall@1 of noisy views after the
+   exact rerank (>= 0.95), each embedding finds itself (cosine >= 0.9999),
+   stage times, PQGallery.search(rerank=0), the dense GalleryStore at the
+   same rows; K2's times at these shapes against its bound, its plain
+   version and ``embedding_bag``;
+8. the PQ gallery on the card against the CPU at 20,000 rows (same codec,
+   codes and queries): ids equal, scores within 1e-5;
+9. one JSON line of every kernel's numbers.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside it, the script exits non-zero and prints no
@@ -48,6 +66,12 @@ MAIN = dict(det="det_10g", rec="w600k_r50", frames=8, hw=(1080, 1920),
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 WARP_FLOPS_PER_PIXEL = 60   # coordinates, weights, 12 taps, normalize
+TOL_K2 = 1e-6          # K2 vs plain, relative to max |score| (expected 0)
+# phase 6: the (Q, G, K) grid; phase 7: the gallery path (rows, synthetic
+# identities, their per-dim noise, search k); phase 8: rows
+K2_GRID = dict(q=(1, 3, 16, 80), g=(0, 1, 4097, 2_000_000), k=(16, 256))
+GAL = dict(rows=1_000_000, idents=100_000, sigma=0.05, k=5)
+GAL_CPU_ROWS = 20_000
 
 
 def fail(msg):
@@ -380,7 +404,7 @@ def phase_main_path(torch, rep):
             f"affine_grid + grid_sample {t['library_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} "
             f"ms by {t['bound_by']} ({t['bytes']} B), max_abs_err {err:.6g} u8")
-    return launches, err, t
+    return launches, err, t, o.embeddings[o.valid].cpu().numpy()
 
 
 def phase_card_vs_cpu(torch, rep):
@@ -440,6 +464,332 @@ def phase_card_vs_cpu(torch, rep):
             f"match_sim {dm:.3g}; min embedding cosine {cos:.7f}")
 
 
+class HostStageTimer:
+    """Stage hook for the gallery: host clock around each stage, with the
+    device synchronized on entry and exit, since the migration's stages mix
+    host and device work."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.ms = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        self.torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.torch.cuda.synchronize()
+            self.ms[name] = (self.ms.get(name, 0.0)
+                             + (time.perf_counter() - t) * 1e3)
+
+
+def compare_k2(torch, pq_adc, lut, codes, precision):
+    """Kernel vs plain on the same card tensors: same NaN and inf positions,
+    and the max abs difference of the rest, absolute and relative to the
+    largest |score|."""
+    got = pq_adc.pq_adc_scores(lut, codes, precision)
+    want = pq_adc.adc_scores_plain(lut, codes, precision)
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        fail(f"pq_adc: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(torch.isinf(got), torch.isinf(want))):
+        fail("pq_adc: NaN/inf pattern differs from the plain version")
+    fin = torch.isfinite(want)
+    if not bool(fin.any()):
+        return 0.0, 0.0
+    err = float((got[fin] - want[fin]).abs().max())
+    rel = err / max(float(want[fin].abs().max()), 1e-30)
+    if not rel <= TOL_K2:
+        fail(f"pq_adc ({precision}): max abs err {err} = {rel} of max "
+             f"|score| > {TOL_K2}")
+    inf = torch.isinf(want)
+    if not torch.equal(got[inf], want[inf]):
+        fail("pq_adc: infinite scores differ in sign")
+    return err, rel
+
+
+def phase_k2_vs_plain(torch, pq_adc, rep):
+    rng = np.random.default_rng(2)
+    worst = (0.0, 0.0)
+    n_cases = 0
+    for m in (64, 12):
+        for k in K2_GRID["k"]:
+            g_max = max(K2_GRID["g"]) if m == 64 else 4097
+            codes_all = torch.from_numpy(rng.integers(
+                0, k, (g_max, m), dtype=np.uint8)).to(DEV)
+            for q in K2_GRID["q"]:
+                lut_np = rng.normal(size=(q, m, k)).astype(np.float32)
+                if q >= 3:        # a non-finite query and an inf entry
+                    lut_np[1, 5, :] = np.nan
+                    lut_np[2, 7, : k // 2] = np.inf
+                lut = torch.from_numpy(lut_np).to(DEV)
+                for g in K2_GRID["g"]:
+                    if g > g_max:
+                        continue
+                    codes = codes_all[:g]
+                    for precision in pq_adc.PRECISIONS:
+                        err, rel = compare_k2(torch, pq_adc, lut, codes,
+                                              precision)
+                        worst = max(worst, (err, rel), key=lambda x: x[1])
+                        n_cases += 1
+            del codes_all
+    rep.say(f"K2 vs plain, {n_cases} cases (both precisions; Q "
+            f"{K2_GRID['q']}, G {K2_GRID['g']}, K {K2_GRID['k']}, M 64 and "
+            f"12, NaN and inf LUT entries): NaN/inf positions equal, max abs "
+            f"err {worst[0]:.6g} = {worst[1]:.3g} of max |score| "
+            f"(tolerance {TOL_K2}, expected 0)")
+    return worst[0]
+
+
+def k2_bound(q, m, k, g, precision):
+    """Least time for K2's work: code bytes, LUT bytes (2 a entry in "hi")
+    and score bytes once at the HBM rate, or Q*G*M adds at the f32 rate."""
+    nbytes = g * m + q * m * k * (2 if precision == "hi" else 4) + q * g * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = q * g * m / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations"), nbytes
+
+
+def k2_times(torch, pq_adc, lut, codes, precision):
+    """K2, its plain version and one embedding_bag call (the yardstick: the
+    same (G, Q) sums over codes offset into an (M*K, Q) table) on the same
+    card tensors; the yardstick's result is held to the plain version's."""
+    q, m, k = lut.shape
+    g = codes.shape[0]
+    ms = time_ms(torch, lambda: pq_adc.pq_adc_scores(lut, codes, precision))
+    plain_ms = time_ms(torch, lambda: pq_adc.adc_scores_plain(
+        lut, codes, precision), iters=3)
+    table = lut if precision == "hilo" else lut.to(torch.bfloat16).float()
+    weight = table.permute(1, 2, 0).reshape(m * k, q).contiguous()
+    idx = codes.long() + torch.arange(m, device=DEV)[None, :] * k
+    nnf = torch.nn.functional
+
+    def lib():
+        return nnf.embedding_bag(idx, weight, mode="sum")
+
+    library_ms = time_ms(torch, lib, iters=3)
+    want = pq_adc.adc_scores_plain(lut, codes, precision)
+    lib_rel = float((lib().T - want).abs().max() / want.abs().max())
+    del idx, weight
+    bound_ms, bound_by, nbytes = k2_bound(q, m, k, g, precision)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                lib_rel=lib_rel)
+
+
+def identity_rows(rng, n, idents, dim, sigma, chunk=100_000):
+    """(n, dim) unit rows, each a noisy view (per-dim noise sigma) of one of
+    `idents` random unit centers, the identity drawn at random per row (so
+    any id range spans the identities), made in chunks."""
+    centers = rng.standard_normal((idents, dim), dtype=np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    ident = rng.integers(0, idents, n)
+    rows = np.empty((n, dim), np.float32)
+    for i0 in range(0, n, chunk):
+        blk = centers[ident[i0:i0 + chunk]]
+        blk += sigma * rng.standard_normal(blk.shape, dtype=np.float32)
+        blk /= np.linalg.norm(blk, axis=1, keepdims=True)
+        rows[i0:i0 + chunk] = blk
+    return rows, ident, centers
+
+
+def median_ms(torch, fn, n=5):
+    out, times = None, []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)[n // 2], times, out
+
+
+def phase_gallery_path(torch, rep, main_emb):
+    from scrfd_arcface_facerecognition_tpu_torch import stages
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import (
+        AutoGallery, GalleryStore, pq_adc)
+
+    n, dim, k = GAL["rows"], main_emb.shape[1], GAL["k"]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    rows, ident, centers = identity_rows(rng, n, GAL["idents"], dim,
+                                         GAL["sigma"])
+    main_q = main_emb / np.linalg.norm(main_emb, axis=1, keepdims=True)
+    known = rng.choice(n, len(main_q), replace=False)
+    rows[known] = main_q
+    ident[known] = -1
+    ids = np.arange(n, dtype=np.int64)
+    # noisy views of enrolled identities, for recall@1
+    probe = rng.choice(np.flatnonzero(ident >= 0), 256, replace=False)
+    probe_ident = ident[probe]
+    views = centers[probe_ident] + GAL["sigma"] * rng.standard_normal(
+        (len(probe), dim), dtype=np.float32)
+    views /= np.linalg.norm(views, axis=1, keepdims=True)
+    cos = main_q @ main_q.T
+    off = cos[~np.eye(len(cos), dtype=bool)]
+    rep.say(f"gallery path: {n} synthetic rows of {GAL['idents']} "
+            f"identities (noise {GAL['sigma']} a dim) made in "
+            f"{time.perf_counter() - t0:.1f} s; {len(main_q)} main-path "
+            f"embeddings enrolled at known ids (pairwise cosine mean "
+            f"{off.mean():.4f}, max {off.max():.4f})")
+
+    timer = HostStageTimer(torch)
+    stages.set_stage_hook(timer)
+    ag = AutoGallery(vector_size=dim, tier="pq", device=DEV)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    added = ag.add_batch(ids, rows)
+    torch.cuda.synchronize()
+    add_ms = (time.perf_counter() - t) * 1e3
+    mig = dict(timer.ms)
+    if added != n or ag.tier != "pq" or ag.get_embedding_count() != n:
+        fail(f"gallery: add_batch wrote {added}, tier {ag.tier}")
+    cap = ag._pq.capacity
+    if cap != 2 * n:
+        fail(f"gallery: PQ capacity {cap} != {2 * n}")
+    rep.say(f"gallery path: add_batch of {n} rows {add_ms:.0f} ms = dense "
+            f"fill {add_ms - mig['pq_migrate']:.0f} ms + migration stall "
+            f"{mig['pq_migrate']:.0f} ms (codec training on "
+            f"{ag.pq_train_rows} rows x {ag.pq_train_iters} iterations "
+            f"{mig['pq_train']:.0f} ms, encoding {n} rows "
+            f"{mig['pq_encode']:.0f} ms); PQGallery capacity {cap} rows")
+
+    # the path: search_batch, with K2's count reset just before
+    timer.ms.clear()
+    pq_adc.launches = 0
+    search_ms, all_ms, hits = median_ms(
+        torch, lambda: ag.search_batch(main_q, k=k))
+    stage_ms = {s: timer.ms[s] / len(all_ms) for s in stages.GALLERY_STAGES
+                if s in timer.ms}
+    stages.set_stage_hook(None)
+    probe_hits = ag.search_batch(views, k=k)
+    launches = pq_adc.launches
+    if launches == 0:
+        fail("gallery path launched K2 no time")
+    for i, h in enumerate(hits):
+        if len(h) != k or h[0].id != known[i] or not h[0].score >= 0.9999:
+            fail(f"gallery: main-path embedding {i} (id {known[i]}) found "
+                 f"{[(x.id, x.score) for x in h[:2]]}")
+    recall = float(np.mean([len(h) > 0 and ident[h[0].id] == want
+                            for h, want in zip(probe_hits, probe_ident)]))
+    if not recall >= 0.95:
+        fail(f"gallery: recall@1 {recall} < 0.95")
+    rep.say(f"gallery path: search_batch of {len(main_q)} queries, k={k}, "
+            f"rerank {ag.pq_rerank} (K2 in 'hi'): median {search_ms:.2f} ms "
+            f"of " + ", ".join(f"{x:.2f}" for x in all_ms)
+            + "; stages (mean host ms a call, synchronized): " + ", ".join(
+                f"{s} {v:.3f}" for s, v in stage_ms.items())
+            + f"; K2 launches {launches} over 6 calls (5 of the embeddings, "
+            f"1 of {len(probe)} noisy views); every embedding "
+            f"finds itself first (min cosine "
+            f"{min(h[0].score for h in hits):.7f}); recall@1 of "
+            f"{len(probe)} noisy views {recall:.4f}")
+
+    # the "hilo" mode: PQGallery.search without rerank
+    q_norm = main_q.astype(np.float32)
+    hilo_ms, _, (s0, i0) = median_ms(
+        torch, lambda: ag._pq.search(q_norm, k=k), n=3)
+    self_first = float(np.mean(i0[:, 0] == known))
+    rep.say(f"gallery path: PQGallery.search(rerank=0, K2 in 'hilo') "
+            f"median {hilo_ms:.2f} ms; ADC top-1 is the embedding itself for "
+            f"{self_first:.3f} of the queries")
+
+    # K2 at the path's shapes
+    lut = ag._pq.codec.lut(q_norm)
+    codes = ag._pq._codes
+    errs, times = [], {}
+    for precision in pq_adc.PRECISIONS:
+        errs.append(compare_k2(torch, pq_adc, lut, codes, precision)[0])
+        times[precision] = k2_times(torch, pq_adc, lut, codes, precision)
+        t = times[precision]
+        rep.say(f"K2 at the path's shapes (Q={lut.shape[0]}, M="
+                f"{lut.shape[1]}, K={lut.shape[2]}, G={codes.shape[0]}, "
+                f"{precision}): kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, embedding_bag "
+                f"{t['library_ms']:.4f} ms (its max diff from the plain "
+                f"scores {t['lib_rel']:.3g} of max |score|), bound "
+                f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B "
+                f"at 3.35 TB/s), max abs err vs plain {errs[-1]:.6g}")
+    for precision in pq_adc.PRECISIONS:
+        lut16 = lut[:16].contiguous()
+        ms16 = time_ms(torch, lambda: pq_adc.pq_adc_scores(lut16, codes,
+                                                           precision))
+        b16 = k2_bound(16, lut.shape[1], lut.shape[2], codes.shape[0],
+                       precision)
+        rep.say(f"K2 at Q=16 of the path's queries ({precision}): kernel "
+                f"{ms16:.4f} ms, bound {b16[0]:.4f} ms by {b16[1]}")
+    sc = torch.zeros((lut.shape[0], codes.shape[0]), device=DEV)
+    sort_ms = time_ms(torch, lambda: torch.sort(sc, dim=-1, descending=True,
+                                                stable=True), iters=3)
+    topk_ms = time_ms(torch, lambda: torch.topk(sc, 32, dim=-1), iters=3)
+    rep.say(f"gallery path: the stable top-k (a stable descending sort) of "
+            f"the ({lut.shape[0]}, {codes.shape[0]}) scores {sort_ms:.3f} ms; "
+            f"torch.topk(32) on them {topk_ms:.3f} ms (not tie-stable)")
+    del sc, lut
+
+    # the dense tier at the same rows
+    t = time.perf_counter()
+    dense = GalleryStore(vector_size=dim, capacity=1 << 20, device=DEV)
+    dense.add_batch(ids, rows)
+    torch.cuda.synchronize()
+    dense_fill = time.perf_counter() - t
+    dense_ms, _, dhits = median_ms(
+        torch, lambda: dense.search_batch(main_q, k=k))
+    same = np.mean([[a.id for a in x] == [b.id for b in y]
+                    for x, y in zip(hits, dhits)])
+    same1 = np.mean([x[0].id == y[0].id for x, y in zip(hits, dhits)])
+    if not all(h[0].id == w for h, w in zip(dhits, known)):
+        fail("dense gallery: an embedding does not find itself")
+    rep.say(f"dense GalleryStore at the same {n} rows (f32, "
+            f"{dense.capacity * dim * 4 / 1e9:.2f} GB on the card): fill "
+            f"{dense_fill:.1f} s, search_batch median {dense_ms:.2f} ms; "
+            f"the PQ tier's reranked top-{k} equals the dense top-{k} for "
+            f"{same:.3f} of the queries, its top-1 for {same1:.3f}")
+    del dense
+    n_cpu = GAL_CPU_ROWS
+    return dict(codec=ag._pq.codec, rows=rows[:n_cpu], ids=ids[:n_cpu],
+                queries=np.concatenate([main_q, views[:48]]),
+                launches=launches, err=max(errs), times=times["hi"])
+
+
+def phase_gallery_card_vs_cpu(torch, rep, codec, mat, ids, queries):
+    import tempfile
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import (
+        PQCodec, PQGallery)
+
+    n = len(ids)
+    card = PQGallery(codec, capacity=2 * n, keep_exact=True, device=DEV)
+    card.add(ids, mat)
+    cpu_codes = PQCodec(codec.centroids.cpu()).encode(mat)
+    code_diff = int((cpu_codes != card._codes[:n].cpu()).sum())
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        path = os.path.join(d, "pq.npz")
+        card.snapshot(path)
+        cpu = PQGallery.restore(path, device="cpu")
+    worst = 0.0
+    for kw in (dict(k=5, rerank=32), dict(k=5)):
+        sc, ic = card.search(queries, **kw)
+        sh, ih = cpu.search(queries, **kw)
+        if not np.array_equal(ic, ih):
+            fail(f"gallery card vs CPU ({kw}): ids differ in "
+                 f"{int((ic != ih).sum())} places")
+        worst = max(worst, float(np.abs(sc - sh).max()))
+    if not worst <= 1e-5:
+        fail(f"gallery card vs CPU: scores {worst} apart > 1e-5")
+    rep.say(f"gallery card vs CPU at {n} rows, {len(queries)} queries "
+            f"(codes carried across in the npz snapshot): ids equal with "
+            f"rerank 32 ('hi') and without ('hilo'), scores at most "
+            f"{worst:.3g} apart; encoding the same rows on the CPU gives "
+            f"{code_diff} of {mat.shape[0] * codec.m} codes that differ "
+            f"from the card's")
+
+
 def main():
     import torch
 
@@ -450,6 +800,7 @@ def main():
     if repo not in sys.path:
         sys.path.insert(0, repo)
     from scrfd_arcface_facerecognition_tpu_torch import cuda_build
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import pq_adc
     from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
 
     t_start = time.perf_counter()
@@ -478,12 +829,23 @@ def main():
     err3 = phase_kernel_vs_plain(torch, wa, rep)
 
     # 4. the main path at full width
-    launches, err4, t = phase_main_path(torch, rep)
+    launches, err4, t, main_emb = phase_main_path(torch, rep)
 
     # 5. card vs CPU
     phase_card_vs_cpu(torch, rep)
 
-    # 6. kernels
+    # 6. K2 against its plain version
+    err6 = phase_k2_vs_plain(torch, pq_adc, rep)
+
+    # 7. the gallery path at full width
+    gal = phase_gallery_path(torch, rep, main_emb)
+
+    # 8. the PQ gallery, card vs CPU
+    phase_gallery_card_vs_cpu(torch, rep, gal["codec"], gal["rows"],
+                              gal["ids"], gal["queries"])
+
+    # 9. kernels
+    t2 = gal["times"]
     kernels = [{
         "name": wa.NAME, "route": "cuda",
         "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/warp_align.cu",
@@ -491,6 +853,14 @@ def main():
         "launches": launches, "max_abs_err": max(err3, err4),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    }, {
+        "name": pq_adc.NAME, "route": "cuda",
+        "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/pq_adc.cu",
+        "replaces": "scrfd_arcface_facerecognition_tpu/gallery/pq.py:302",
+        "launches": gal["launches"], "max_abs_err": max(err6, gal["err"]),
+        "ms": t2["ms"], "plain_ms": t2["plain_ms"],
+        "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
+        "library_ms": t2["library_ms"],
     }]
     rep.say(f"chip_smoke done in {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -26,6 +26,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 # kernel name -> source file under csrc/
 SOURCES: Dict[str, str] = {
     "warp_align": "warp_align.cu",
+    "pq_adc": "pq_adc.cu",
 }
 
 # --fmad=false: the kernels round every product and sum on its own, as the

@@ -6,7 +6,8 @@ is no silent fallback: asking for the card on a machine without one raises.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -20,3 +21,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "no CUDA device is available; pass device='cpu' to run the "
             "port on the CPU explicitly")
     return dev
+
+
+@contextlib.contextmanager
+def full_f32_matmul() -> Iterator[None]:
+    """f32 matmuls without TF32 inside the block: the JAX package's
+    ``Precision.HIGHEST``. That is PyTorch's default, so this only acts when
+    a caller has lowered the process-wide matmul precision."""
+    prev = torch.get_float32_matmul_precision()
+    if prev == "highest":
+        yield
+        return
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)

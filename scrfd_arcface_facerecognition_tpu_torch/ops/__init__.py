@@ -7,7 +7,8 @@ from .normalize import (normalize_image, SCRFD_MEAN, SCRFD_STD, ARCFACE_MEAN,
                         ARCFACE_STD)
 from .resize import (resize_bilinear, letterbox, letterbox_plan,
                      tight_letterbox_plan, LetterboxPlan)
-from .similarity import l2_normalize
+from .similarity import (l2_normalize, compute_similarity, cosine_matrix,
+                         top_k_matches)
 from .umeyama import umeyama_similarity, estimate_norm, ARCFACE_DST
 from .warp import invert_affine, warp_affine_flat, warp_affine_inv_flat
 from .nms import (iou_matrix_legacy, nms_mask_blocked, compact_by_mask,
@@ -20,7 +21,7 @@ __all__ = [
     "normalize_image", "SCRFD_MEAN", "SCRFD_STD", "ARCFACE_MEAN", "ARCFACE_STD",
     "resize_bilinear", "letterbox", "letterbox_plan", "tight_letterbox_plan",
     "LetterboxPlan",
-    "l2_normalize",
+    "l2_normalize", "compute_similarity", "cosine_matrix", "top_k_matches",
     "umeyama_similarity", "estimate_norm", "ARCFACE_DST",
     "invert_affine", "warp_affine_flat", "warp_affine_inv_flat",
     "iou_matrix_legacy", "nms_mask_blocked", "compact_by_mask",

@@ -5,6 +5,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -44,6 +45,10 @@ def test_no_module_of_the_port_imports_jax_flax_or_the_jax_package():
              for f in fs if f.endswith(".py")]
     files.append(os.path.join(_REPO, "chip_smoke.py"))
     assert len(files) > 15
+    names = {os.path.relpath(p, _PKG) for p in files}
+    for mod in ("gallery/store.py", "gallery/dedup.py", "gallery/pq.py",
+                "gallery/pq_adc.py", "gallery/auto.py", "runtime/native.py"):
+        assert mod in names, mod
     for path in files:
         bad = set(_imported_roots(path)) & set(_FORBIDDEN)
         assert not bad, (path, bad)
@@ -59,6 +64,24 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_gallery_entry_points_raise_without_cuda(monkeypatch):
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import (
+        AutoGallery, GalleryStore, PQCodec, PQGallery, duplicate_groups)
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import dedup
+
+    codec = PQCodec(torch.zeros((4, 16, 2)))            # on the CPU
+    rows = np.eye(4, 8, dtype=np.float32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (GalleryStore, AutoGallery, lambda: PQGallery(codec),
+                 lambda: PQCodec.from_centroids(np.zeros((4, 16, 2))),
+                 lambda: PQCodec.train(rows, m=4, k=2, iters=1),
+                 lambda: duplicate_groups(rows, 0.9),
+                 lambda: dedup.find_duplicate_pairs_blocked(rows, 0.9)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert PQGallery(codec, capacity=4, device="cpu").device.type == "cpu"
 
 
 def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
