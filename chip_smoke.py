@@ -41,7 +41,32 @@ non-zero exit if it fails:
    version and ``embedding_bag``;
 8. the PQ gallery on the card against the CPU at 20,000 rows (same codec,
    codes and queries): ids equal, scores within 1e-5;
-9. one JSON line of every kernel's numbers.
+9. kernel K3 (the 5-pass band-mix warp, ``warp_band``) on its experiment's
+   path (``tools.exp_warp2.run``: 16 x 1080p frames, 320 crops, against
+   K1), with its launch count reset just before and read just after; then
+   against its plain version on that workload and on stress sets (scales
+   to 8, level-1 canvas crops, rotations past the envelope and upside
+   down, crops past the frame edge, 512-wide and 400-wide frames), max abs
+   error in u8 units (tolerance 1e-3, expected 0); kernel / plain / bound
+   times (the bound from what the crops need, traced back through the
+   passes' taps), the f32 intermediates' HBM traffic and its deviation
+   from exact bilinear;
+10. kernel K4 (the narrow 3x3 conv, ``conv3x3``) on its experiment's path
+   (``tools.exp_pallas_conv.run``: B=64, H=96, W=160, Wp=256, C=F=56), with
+   its launch count reset just before and read just after; against its
+   plain version there and at C=3, F=16, H=8, Wp=W+1, ReLU on and off,
+   scale and bias given and absent (equal or one bf16 step apart, expected
+   equal); kernel / plain / cuDNN bf16 conv2d / bound times;
+11. the main path on the torch stand-in weights: det_10g and w600k_r50
+   stand-ins (``tests/torch_export.py``) exported to ONNX, loaded through
+   the port's importer (``variables_from_onnx``) on the card, FacePipeline
+   at bench.py's settings (conf 0.5, pre_nms 256, max_det 16, max_num 10,
+   8 x 1080p frames, gallery 128), K1's launch count reset just before and
+   read just after; faces per call, said as meeting or not meeting the
+   expectation (more than 0, fewer than every slot; 0 fails), ms per
+   call, stage times; the path's
+   crop matrices through WarpParams and K3 against its plain version;
+12. one JSON line of every kernel's numbers.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside it, the script exits non-zero and prints no
@@ -67,6 +92,14 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 WARP_FLOPS_PER_PIXEL = 60   # coordinates, weights, 12 taps, normalize
 TOL_K2 = 1e-6          # K2 vs plain, relative to max |score| (expected 0)
+BF16_FLOPS_PER_S = 989e12
+K3_FLOPS_PER_POSITION = 26   # position, two taps' weights, 3 x 2 mul-adds
+# phase 9: K3's path (frames, height, width, crops); phase 10: K4's shapes;
+# phase 11: the stand-in main path at bench.py's settings
+K3_CASE = (16, 1080, 1920, 320)
+K4_SHAPES = dict(b=64, h=96, w=160, c=56, f=56, wp=256)
+STANDIN = dict(frames=8, hw=(1080, 1920), max_num=10, gallery=128, conf=0.5,
+               pre_nms=256, max_det=16)
 # phase 6: the (Q, G, K) grid; phase 7: the gallery path (rows, synthetic
 # identities, their per-dim noise, search k); phase 8: rows
 K2_GRID = dict(q=(1, 3, 16, 80), g=(0, 1, 4097, 2_000_000), k=(16, 256))
@@ -407,7 +440,25 @@ def phase_main_path(torch, rep):
     return launches, err, t, o.embeddings[o.valid].cpu().numpy()
 
 
+@contextlib.contextmanager
+def full_f32(torch):
+    """TF32 off for convolutions and matmuls inside the block, the
+    process's settings restored after it (the phases after it time the
+    paths at PyTorch's defaults)."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
 def phase_card_vs_cpu(torch, rep):
+    """The port on the card against the port on the CPU; run it inside
+    ``full_f32``."""
     from scrfd_arcface_facerecognition_tpu_torch.models.arcface import (
         ArcFaceConfig)
     from scrfd_arcface_facerecognition_tpu_torch.models.scrfd import (
@@ -415,8 +466,6 @@ def phase_card_vs_cpu(torch, rep):
     from scrfd_arcface_facerecognition_tpu_torch.pipeline import (
         Detector, Embedder, FacePipeline)
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     det_cfg = SCRFDConfig("small_det", 16, (1, 2, 1, 1), (16, 16, 32, 48),
                           neck_filters=16, head_stacks=2, head_filters=32,
                           gn_groups=8)
@@ -790,6 +839,391 @@ def phase_gallery_card_vs_cpu(torch, rep, codec, mat, ids, queries):
             f"from the card's")
 
 
+# ---------------------------------------------------------------- K3 and K4
+
+def k3_bound(frames_planar, canvas_planar, prm):
+    """Least time for K3's work, from what this run's crops depend on
+    (``exp_warp2.needed``: traced back from the kept crop pixels through
+    each pass's taps with non-zero weight): the f32 crops written once,
+    the params and the needed source pixels (3 channels) read once; or
+    K3_FLOPS_PER_POSITION for each needed output position of the five
+    passes at the f32 rate. Also the f32 intermediates this design moves
+    through device memory: its scratch, all of it written, and at least
+    the needed intermediate values read back."""
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_params as wp
+    from scrfd_arcface_facerecognition_tpu_torch.tools import exp_warp2
+
+    f = prm.iparams.shape[0]
+    counts, hit_f, hit_c = exp_warp2.needed(frames_planar, canvas_planar, prm)
+    src_px = int(hit_f.sum()) + int(hit_c.sum())
+    nbytes = f * 3 * wp.OUT * wp.OUT * 4 + f * 16 * 4 + 3 * src_px
+    positions = sum(counts)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = positions * K3_FLOPS_PER_POSITION / FP32_FLOPS_PER_S * 1e3
+    scratch = f * 3 * (wp.Q * wp.PW + 2 * wp.Q * wp.Q) * 4
+    written = f * 3 * (wp.Q * wp.PW + 3 * wp.Q * wp.Q) * 4
+    read = 3 * sum(counts[1:]) * 4
+    return dict(ms=max(t_bytes, t_ops),
+                by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, src_px=src_px, positions=positions,
+                flops=positions * K3_FLOPS_PER_POSITION, scratch=scratch,
+                inter_written=written, inter_read=read,
+                inter_ms=(written + read) / HBM_BYTES_PER_S * 1e3)
+
+
+def compare_k3(torch, exp_warp2, frames_planar, canvas_planar, prm):
+    """K3 vs its plain version on the same card tensors: same NaN
+    positions, and the max abs difference of the rest in u8 units."""
+    got = exp_warp2.warp_crops_band(frames_planar, canvas_planar, prm)
+    want = exp_warp2.warp_crops_band_plain(frames_planar, canvas_planar, prm)
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        fail(f"warp_band: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        fail("warp_band: NaN pattern differs from the plain version")
+    fin = ~torch.isnan(want)
+    err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+    if not err <= TOL_U8:
+        fail(f"warp_band: max abs err {err} u8 > {TOL_U8}")
+    return err
+
+
+def k3_stress(torch, rng, nb, h, w, n):
+    """Frames, canvas and WarpParams of n crops that leave the workload's
+    envelope: scales to 8 source px a crop px (level 1, inside the canvas
+    envelope and beyond it), rotations to 0.6 rad and upside down (fallback
+    crops, compared all the same), centers near and past the frame edge."""
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_params as wp
+
+    frames = synthetic_frames(torch, rng, nb, h, w)
+    ms = np.zeros((n, 2, 3), np.float32)
+    for k in range(n):
+        sigma = rng.uniform(0.4, 8.0)
+        u = rng.random()
+        ang = (rng.uniform(-0.24, 0.24) if u < 0.6 else
+               rng.uniform(-0.6, 0.6) if u < 0.85 else
+               np.pi + rng.uniform(-0.3, 0.3))
+        cx = rng.choice([rng.uniform(-60, 120), rng.uniform(w - 120, w + 60),
+                         rng.uniform(0, w)])
+        cy = rng.choice([rng.uniform(-60, 120), rng.uniform(h - 120, h + 60),
+                         rng.uniform(0, h)])
+        rot = np.array([[np.cos(ang), -np.sin(ang)],
+                        [np.sin(ang), np.cos(ang)]]) / sigma
+        ms[k, :, :2] = rot
+        ms[k, :, 2] = np.array([wp.C0, wp.C0]) - rot @ np.array([cx, cy])
+    fidx = torch.from_numpy(rng.integers(0, nb, n).astype(np.int32)).to(DEV)
+    plan = ops.tight_letterbox_plan((h, w), (640, 640))
+    canvas = ops.letterbox(frames, plan).round().clamp(0, 255).to(torch.uint8)
+    prm = wp.prepare_warp_params(torch.from_numpy(ms).to(DEV), fidx, (h, w),
+                                 plan.det_scale,
+                                 canvas_hw=tuple(canvas.shape[1:3]))
+    return wp.planarize(frames), wp.planarize(canvas), prm
+
+
+def phase_k3(torch, rep):
+    """K3's path (the experiment script's run, counts reset just before and
+    read just after), then K3 against its plain version on the workload and
+    the stress sets, its times at the path's shapes and its deviation from
+    exact bilinear."""
+    from scrfd_arcface_facerecognition_tpu_torch.ops.warp_params import (
+        planarize)
+    from scrfd_arcface_facerecognition_tpu_torch.tools import exp_warp2
+
+    nb, h, w, nc = K3_CASE
+    exp_warp2.launches = 0
+    run = exp_warp2.run(batch=nb, faces=nc, iters=10, fh=h, fw=w, seed=0,
+                        device=DEV)
+    torch.cuda.synchronize()
+    launches = exp_warp2.launches
+    if launches == 0:
+        fail("K3's path launched the band-mix kernel no time")
+    rep.say(f"K3 path (tools.exp_warp2.run, {nb}x{h}x{w} frames, {nc} "
+            f"crops, {run['in_envelope']} inside the envelope): K3 "
+            f"{run['band_ms']:.4f} ms, K1 {run['k1_ms']:.4f} ms a call "
+            f"(CUDA events, warm L2); K3 vs K1 max {run['max_vs_k1']:.4f} "
+            f"mean {run['mean_vs_k1']:.4f} u8; K3 launches {launches}")
+
+    frames, canvas, _, _, prm = exp_warp2.make_workload(
+        np.random.default_rng(0), nb, nc, fh=h, fw=w, device=DEV)
+    fp, cp = planarize(frames), planarize(canvas)
+    errs = [compare_k3(torch, exp_warp2, fp, cp, prm)]
+    rng = np.random.default_rng(9)
+    cases = []
+    for sb, sh, sw, sn in ((4, h, w, 120), (4, 384, 512, 60),
+                           (2, 300, 400, 30)):
+        sfp, scp, sprm = k3_stress(torch, rng, sb, sh, sw, sn)
+        errs.append(compare_k3(torch, exp_warp2, sfp, scp, sprm))
+        lv = sprm.iparams[:, 1]
+        cases.append(f"{sb}x{sh}x{sw}: {sn} crops, {int((lv == 1).sum())} "
+                     f"at level 1, {int(sprm.fallback.sum())} fallback")
+    rep.say(f"K3 vs plain: workload {errs[0]:.6g} u8; stress sets ("
+            + "; ".join(cases) + f"): " + ", ".join(f"{e:.6g}" for e in
+                                                    errs[1:])
+            + f" u8 (tolerance {TOL_U8}, expected 0)")
+
+    ms = time_ms(torch, lambda: exp_warp2.warp_crops_band(fp, cp, prm))
+    plain_ms = time_ms(torch, lambda: exp_warp2.warp_crops_band_plain(
+        fp, cp, prm), iters=2)
+    bd = k3_bound(fp, cp, prm)
+    chk = exp_warp2.check(device=DEV)
+    rep.say(f"K3 times at {nb}x{h}x{w} / {nc} crops (cold L2): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library n/a (no single "
+            f"PyTorch call computes the five resampling passes), bound "
+            f"{bd['ms']:.4f} ms by {bd['by']} ({bd['bytes']} B at 3.35 TB/s: "
+            f"the crops, the params and {bd['src_px']} needed source pixels "
+            f"x 3 channels; {bd['positions']} needed positions x "
+            f"{K3_FLOPS_PER_POSITION} flops = {bd['flops']} at 67 TFLOP/s); "
+            f"kernel / bound {ms / bd['ms']:.1f}")
+    rep.say(f"K3 f32 intermediates (one launch a pass): {bd['scratch']} B of "
+            f"scratch a call, {bd['inter_written']} B written and at least "
+            f"{bd['inter_read']} B (the needed values) read back through "
+            f"HBM, at least {bd['inter_ms']:.4f} ms at 3.35 TB/s; K3 vs "
+            f"exact bilinear (check, noise frames, {chk['crops']} crops): "
+            f"mean {chk['mean']:.4f}, p99 {chk['p99']:.3f}, max "
+            f"{chk['max']:.3f} u8")
+    return dict(launches=launches, err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bd["ms"], bound_by=bd["by"])
+
+
+def k4_bound(b, c, h, wp, f):
+    """Least time for K4's work: x and w3 read once (bf16), the affine read,
+    y written once (bf16); or 2 * 9C * F flops an output position at the
+    bf16 tensor-core rate."""
+    nbytes = b * c * h * wp * 2 + 9 * c * f * 2 + 2 * f * 4 + b * f * h * wp * 2
+    flops = 2 * b * h * wp * 9 * c * f
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations"), nbytes
+
+
+def phase_k4(torch, rep):
+    """K4's path (the experiment script's run, counts reset just before and
+    read just after), K4 against its plain version at the script's shapes
+    and odd ones, and its times against cuDNN's bf16 conv."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import exp_pallas_conv
+
+    s = K4_SHAPES
+    exp_pallas_conv.launches = 0
+    run = exp_pallas_conv.run(dict(s), iters=30, device=DEV)
+    torch.cuda.synchronize()
+    launches = exp_pallas_conv.launches
+    if launches == 0:
+        fail("K4's path launched the conv kernel no time")
+    rep.say(f"K4 path (tools.exp_pallas_conv.run, B={s['b']} C={s['c']} "
+            f"H={s['h']} W={s['w']} Wp={s['wp']} F={s['f']}): K4 "
+            f"{run['ms']:.4f} ms ({run['gflop'] / run['ms']:.1f} TFLOP/s), "
+            f"cuDNN bf16 conv2d {run['cudnn_ms']:.4f} ms (warm L2); K4 vs "
+            f"cuDNN max abs {run['cudnn_max_abs']:.4g} (scale "
+            f"{run['scale']:.2f}); K4 launches {launches}")
+
+    rng = np.random.default_rng(11)
+    worst, worst_abs, n_cases, cases = 0, 0.0, 0, {}
+    for shp in (s, dict(b=2, h=8, w=20, c=3, f=16, wp=21)):
+        x, w3, k = exp_pallas_conv.workload(rng, shp["b"], shp["h"], shp["w"],
+                                            shp["c"], shp["f"], shp["wp"],
+                                            device=DEV)
+        sc = torch.from_numpy(rng.uniform(0.5, 1.5, shp["f"]).astype(
+            np.float32)).to(DEV)
+        bi = torch.from_numpy(rng.normal(size=shp["f"]).astype(
+            np.float32)).to(DEV)
+        for relu in (False, True):
+            for aff in ((None, None), (sc, bi)):
+                got = exp_pallas_conv.conv3x3(x, w3, *aff, relu=relu)
+                want = exp_pallas_conv.conv3x3_plain(x, w3, *aff, relu=relu)
+                ulps = exp_pallas_conv.bf16_ulps(got, want)
+                if not 0 <= ulps <= 1:
+                    fail(f"conv3x3: {ulps} bf16 steps from the plain version "
+                         f"(shape {shp}, relu {relu}, affine "
+                         f"{aff[0] is not None})")
+                worst = max(worst, ulps)
+                worst_abs = max(worst_abs, float(
+                    (got.float() - want.float()).abs().max()))
+                n_cases += 1
+        cases[tuple(shp.values())] = (x, w3, k, sc, bi)
+    rep.say(f"K4 vs plain, {n_cases} cases (the script's shapes and C=3, "
+            f"F=16, H=8, Wp=W+1; relu on and off; scale and bias given and "
+            f"absent): at most {worst} bf16 steps apart (tolerance 1, "
+            f"expected 0), max abs difference {worst_abs:.6g}")
+
+    x, w3, k, sc, bi = cases[tuple(s.values())]
+    kt = torch.from_numpy(k.transpose(3, 2, 0, 1).copy()).to(DEV).to(
+        torch.bfloat16)
+    ms = time_ms(torch, lambda: exp_pallas_conv.conv3x3(x, w3, sc, bi, True))
+    plain_ms = time_ms(torch, lambda: exp_pallas_conv.conv3x3_plain(
+        x, w3, sc, bi, True), iters=2)
+    lib_ms = time_ms(torch, lambda: exp_pallas_conv.cudnn_conv(
+        x, kt, s["w"], sc, bi, True))
+    lib = exp_pallas_conv.cudnn_conv(x, kt, s["w"], sc, bi, True)
+    ref = exp_pallas_conv.conv3x3(x, w3, sc, bi, True)[..., :s["w"]]
+    lib_err = float((lib.float() - ref.float()).abs().max())
+    bound_ms, bound_by, nbytes = k4_bound(s["b"], s["c"], s["h"], s["wp"],
+                                          s["f"])
+    rep.say(f"K4 times at the script's shapes, affine + ReLU (cold L2): "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN bf16 conv2d "
+            f"+ affine + ReLU on the {s['w']} real lanes {lib_ms:.4f} ms (max "
+            f"abs {lib_err:.4g} from the kernel there), bound {bound_ms:.4f} "
+            f"ms by {bound_by} ({nbytes} B at 3.35 TB/s; "
+            f"{2 * s['b'] * s['h'] * s['wp'] * 9 * s['c'] * s['f']} flops at "
+            f"989 TFLOP/s bf16)")
+    return dict(launches=launches, err=worst_abs, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+# ------------------------------------------------ the stand-in main path
+
+def standin_onnx(torch, build):
+    """The det_10g and w600k_r50 torch stand-ins (``tests/torch_export.py``,
+    crc32 seeds, the detector calibrated) exported to ONNX under ``build``,
+    cached by the stand-ins' definition."""
+    import importlib.util
+    import zlib
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(here, "tests", "torch_export.py")
+    with open(src, "rb") as f:
+        key = f"{zlib.crc32(f.read()):08x}"
+    spec = importlib.util.spec_from_file_location("torch_export", src)
+    te = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(te)
+    out = {}
+    os.makedirs(build, exist_ok=True)
+    for name, side in (("det_10g", 640), ("w600k_r50", 112)):
+        path = os.path.join(build, f"{name}_standin_{key}.onnx")
+        if not os.path.exists(path):
+            tm = te.seeded(te.STAND_INS[name](),
+                           seed=zlib.crc32(name.encode()) % 1000)
+            if name.startswith("det"):
+                tm = te.calibrate_detector(tm)
+            te.export_onnx(tm, torch.randn(1, 3, side, side), path + ".tmp")
+            os.replace(path + ".tmp", path)
+        out[name] = path
+    return out
+
+
+def standin_expectation(faces, slots):
+    """The stand-in path's face-count expectation (more than 0 faces and
+    fewer than every slot a call), said as met or NOT MET. Zero faces fails
+    the phase; a full count is reported: the random-weight stand-ins score
+    every frame alike, so they fill max_num on any content."""
+    if faces <= 0:
+        fail("stand-in path found no faces")
+    if faces < slots:
+        return (f"stand-in path: expectation met: {faces} faces, more than 0 "
+                f"and fewer than the {slots} slots a call")
+    return (f"stand-in path: expectation NOT MET: more than 0 and fewer than "
+            f"{slots} faces a call expected, {faces} of {slots} found; the "
+            f"random-weight stand-ins score every frame alike and fill "
+            f"max_num on any content, so realistic counts need a trained "
+            f"checkpoint")
+
+
+def phase_standin_path(torch, rep):
+    """The main path on the stand-in weights, loaded through the port's
+    ONNX importer; K1's count reset just before the calls and read just
+    after; then the path's crop matrices through WarpParams and K3."""
+    from scrfd_arcface_facerecognition_tpu_torch import FacePipeline, ops, stages
+    from scrfd_arcface_facerecognition_tpu_torch.models.config_from_graph import (
+        variables_from_onnx)
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_params as wp
+    from scrfd_arcface_facerecognition_tpu_torch.pipeline import (
+        Detector, Embedder)
+    from scrfd_arcface_facerecognition_tpu_torch.pipeline.face_pipeline import (
+        bucket_slots)
+    from scrfd_arcface_facerecognition_tpu_torch.tools import exp_warp2
+
+    t0 = time.perf_counter()
+    c = STANDIN
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "standins")
+    paths = standin_onnx(torch, build)
+    t_export = time.perf_counter() - t0
+    det_cfg, det_v = variables_from_onnx(paths["det_10g"], name="det_10g")
+    rec_cfg, rec_v = variables_from_onnx(paths["w600k_r50"], name="w600k_r50")
+    t_import = time.perf_counter() - t0 - t_export
+    det = Detector(config=det_cfg, variables=det_v, conf_thres=c["conf"],
+                   pre_nms=c["pre_nms"], max_det=c["max_det"], device=DEV)
+    emb = Embedder(config=rec_cfg, variables=rec_v, device=DEV)
+    pipe = FacePipeline(detector=det, embedder=emb,
+                        gallery_capacity=c["gallery"], device=DEV)
+    nb, (h, w), max_num, ng = c["frames"], c["hw"], c["max_num"], c["gallery"]
+    rng = np.random.default_rng(0)
+    pipe.set_gallery(rng.normal(size=(ng, 512)).astype(np.float32),
+                     [f"p{i}" for i in range(ng)])
+    frames = torch.from_numpy(rng.integers(0, 255, (nb, h, w, 3),
+                                           dtype=np.uint8)).to(DEV)
+    pipe(frames, max_num=max_num)                     # warm-up
+    torch.cuda.synchronize()
+    rep.say(f"stand-in path: {det_cfg.name} (stem {det_cfg.stem_filters}, "
+            f"stages {tuple(det_cfg.stage_filters)}) + {rec_cfg.name} "
+            f"(blocks {tuple(rec_cfg.stage_blocks)}) stand-ins exported in "
+            f"{t_export:.1f} s, loaded through the port's ONNX importer in "
+            f"{t_import:.1f} s; set-up + warm-up "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    timer = StageTimer(torch)
+    wa.launches = 0
+    stages.set_stage_hook(timer)
+    call_ms, outs = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        out = pipe(frames, max_num=max_num)
+        torch.cuda.synchronize()
+        call_ms.append((time.perf_counter() - t) * 1e3)
+        outs.append(out)
+    stage_ms = timer.totals()
+    stages.set_stage_hook(None)
+    launches = wa.launches
+    if launches == 0:
+        fail("stand-in path launched K1 no time")
+    o = outs[-1]
+    faces = int(o.valid.sum())
+    expectation = standin_expectation(faces, nb * max_num)
+    ev = o.embeddings[o.valid]
+    if not bool(torch.isfinite(ev).all()) or not bool(
+            ((ev.norm(dim=-1) - 1).abs() < 1e-3).all()):
+        fail("stand-in path: valid embeddings not finite and unit-norm")
+    cos = ev @ ev.T
+    off = cos[~torch.eye(len(ev), dtype=torch.bool, device=ev.device)]
+    per_frame = o.valid.sum(1).tolist()
+    rep.say(f"stand-in path: faces found {faces} of {nb * max_num} slots per "
+            f"{nb}-frame call ({per_frame} a frame), K1 launches {launches} "
+            f"over 3 calls; embeddings finite "
+            f"and unit-norm, pairwise cosine mean {float(off.mean()):.4f} max "
+            f"{float(off.max()):.4f}; scores {float(o.scores[o.valid].min()):.4f}"
+            f"-{float(o.scores[o.valid].max()):.4f}")
+    rep.say(expectation)
+    rep.say(f"stand-in path: ms per {nb}x{h}x{w} call " + ", ".join(
+        f"{m:.2f}" for m in call_ms) + f" (median {sorted(call_ms)[1]:.2f}); "
+        "per-stage device ms (mean of 3 calls): " + ", ".join(
+            f"{k} {stage_ms.get(k, 0.0) / 3:.3f}" for k in stages.STAGES))
+
+    b, k = o.valid.shape
+    sel, fidx = bucket_slots(o.valid, faces)
+    kps = o.kps.reshape(b * k, 5, 2)[sel]
+
+    # the path's crops through WarpParams and K3
+
+    mats = ops.estimate_norm(kps, 112)                  # src -> dst
+    plan = pipe.detector.plan((h, w), tight=True)
+    canvas = ops.letterbox(frames, plan).round().clamp(0, 255).to(torch.uint8)
+    prm = wp.prepare_warp_params(mats, fidx, (h, w), plan.det_scale,
+                                 canvas_hw=tuple(canvas.shape[1:3]))
+    err = compare_k3(torch, exp_warp2, wp.planarize(frames),
+                     wp.planarize(canvas), prm)
+    inside = float((~prm.fallback).float().mean())
+    lv1 = int((prm.iparams[:, 1] == 1).sum())
+    sig = prm.fparams[:, 0]
+    rep.say(f"stand-in path's {faces} crops through WarpParams: "
+            f"{inside:.3f} inside the K3 envelope ({lv1} at level 1; sigma "
+            f"{float(sig.min()):.3f}-{float(sig.max()):.3f}, |sin phi| max "
+            f"{float(prm.fparams[:, 2].abs().max()):.3f}); K3 vs plain on "
+            f"them {err:.6g} u8")
+    return dict(err=err, faces=faces, launches=launches)
+
 def main():
     import torch
 
@@ -831,8 +1265,9 @@ def main():
     # 4. the main path at full width
     launches, err4, t, main_emb = phase_main_path(torch, rep)
 
-    # 5. card vs CPU
-    phase_card_vs_cpu(torch, rep)
+    # 5. card vs CPU, TF32 off for this phase only
+    with full_f32(torch):
+        phase_card_vs_cpu(torch, rep)
 
     # 6. K2 against its plain version
     err6 = phase_k2_vs_plain(torch, pq_adc, rep)
@@ -844,7 +1279,12 @@ def main():
     phase_gallery_card_vs_cpu(torch, rep, gal["codec"], gal["rows"],
                               gal["ids"], gal["queries"])
 
-    # 9. kernels
+    # 9. K3 on its path; 10. K4 on its path; 11. the stand-in main path
+    k3 = phase_k3(torch, rep)
+    k4 = phase_k4(torch, rep)
+    sp = phase_standin_path(torch, rep)
+
+    # 12. kernels
     t2 = gal["times"]
     kernels = [{
         "name": wa.NAME, "route": "cuda",
@@ -861,6 +1301,22 @@ def main():
         "ms": t2["ms"], "plain_ms": t2["plain_ms"],
         "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
         "library_ms": t2["library_ms"],
+    }, {
+        "name": "warp_band", "route": "cuda",
+        "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/warp_band.cu",
+        "replaces": "tools/exp_warp2.py:188",
+        "launches": k3["launches"], "max_abs_err": max(k3["err"], sp["err"]),
+        "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "conv3x3", "route": "cuda",
+        "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/conv3x3.cu",
+        "replaces": "tools/exp_pallas_conv.py:110",
+        "launches": k4["launches"], "max_abs_err": k4["err"],
+        "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+        "library_ms": k4["library_ms"],
     }]
     rep.say(f"chip_smoke done in {time.perf_counter() - t_start:.1f} s")
     print(card)

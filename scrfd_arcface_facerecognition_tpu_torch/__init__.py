@@ -13,8 +13,12 @@ with no card and no explicit CPU device they raise.
 
 The port's hand-written kernels are CUDA C++ for sm_90a under ``csrc/``,
 built with nvcc at first use and bound through ctypes: the face-crop warp
-(``csrc/warp_align.cu``, ``ops/warp_align.py``) and the PQ distance scorer
-(``csrc/pq_adc.cu``, ``gallery/pq_adc.py``).
+(``csrc/warp_align.cu``, ``ops/warp_align.py``), the PQ distance scorer
+(``csrc/pq_adc.cu``, ``gallery/pq_adc.py``), and the two kernels of the
+JAX repository's experiment scripts, ported with their scripts under
+``tools/``: the band-mix warp (``csrc/warp_band.cu``) and the narrow 3x3
+conv (``csrc/conv3x3.cu``). Released-format ``.onnx`` weights load through
+``models/config_from_graph.variables_from_onnx``.
 """
 
 from .device import resolve_device

@@ -27,6 +27,8 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 SOURCES: Dict[str, str] = {
     "warp_align": "warp_align.cu",
     "pq_adc": "pq_adc.cu",
+    "warp_band": "warp_band.cu",
+    "conv3x3": "conv3x3.cu",
 }
 
 # --fmad=false: the kernels round every product and sum on its own, as the

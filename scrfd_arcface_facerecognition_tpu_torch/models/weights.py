@@ -14,11 +14,13 @@ port's submodules carry the Flax names, so a leaf's path maps directly:
 - a space-to-depth detector stem kernel (2, 2, 12, C) becomes the plain
   (3, 3, 3, C) stem first (``s2d_kernel_to_stem``, exact).
 
-This module reads numpy only; it needs neither JAX nor Flax.
+``variables_from_module`` is the inverse: a module's weights as such a
+tree (the ONNX importer's template). This module reads numpy only; it needs
+neither JAX nor Flax.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -73,3 +75,37 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
             state[key] = value   # a training counter Flax does not keep
     module.load_state_dict(state, strict=True)
     return module
+
+
+def _put(tree: Dict[str, Any], path: Sequence[str], leaf: Any) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
+def variables_from_module(module: nn.Module) -> Dict[str, Dict[str, Any]]:
+    """``module``'s weights as a Flax ``{"params", "batch_stats"}`` tree of
+    numpy f32 (the inverse of ``state_dict_from_flax``): 4-D ``weight`` ->
+    conv ``kernel`` (kh, kw, I/groups, O), 2-D -> dense ``kernel`` (in,
+    out), 1-D -> norm ``scale``; running stats -> ``mean`` / ``var``."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for key, t in module.state_dict().items():
+        path = key.split(".")
+        name = path[-1]
+        if name == "num_batches_tracked":
+            continue
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        if name in ("running_mean", "running_var"):
+            _put(stats, path[:-1] + [name[len("running_"):]], arr)
+            continue
+        if name == "weight":
+            if arr.ndim == 4:
+                arr, name = arr.transpose(2, 3, 1, 0), "kernel"
+            elif arr.ndim == 2:
+                arr, name = arr.T, "kernel"
+            else:
+                name = "scale"
+        _put(params, path[:-1] + [name], np.ascontiguousarray(arr))
+    return {"params": params, "batch_stats": stats} if stats else {
+        "params": params}

@@ -47,7 +47,10 @@ def test_no_module_of_the_port_imports_jax_flax_or_the_jax_package():
     assert len(files) > 15
     names = {os.path.relpath(p, _PKG) for p in files}
     for mod in ("gallery/store.py", "gallery/dedup.py", "gallery/pq.py",
-                "gallery/pq_adc.py", "gallery/auto.py", "runtime/native.py"):
+                "gallery/pq_adc.py", "gallery/auto.py", "runtime/native.py",
+                "ops/warp_params.py", "tools/exp_warp2.py",
+                "tools/exp_pallas_conv.py", "models/onnx_proto.py",
+                "models/config_from_graph.py", "models/onnx_import.py"):
         assert mod in names, mod
     for path in files:
         bad = set(_imported_roots(path)) & set(_FORBIDDEN)
