@@ -62,6 +62,12 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def nvcc_command(src: Path, out: Path) -> list:
+    """The nvcc command that builds the source ``src`` into the shared
+    library ``out``."""
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(src)]
+
+
 def _start_build(name: str):
     """Start nvcc for ``name`` unless its library exists; returns the
     running build (process, temporary output, final output) or None."""
@@ -70,8 +76,8 @@ def _start_build(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+    proc = subprocess.Popen(nvcc_command(source_path(name), tmp),
+                            stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 

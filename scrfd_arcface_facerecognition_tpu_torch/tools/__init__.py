@@ -7,7 +7,9 @@ the card: ``python -m scrfd_arcface_facerecognition_tpu_torch.tools.<name>``).
 - ``exp_warp2``: kernel K3, the 5-pass band-mix face warp
   (``csrc/warp_band.cu``);
 - ``exp_pallas_conv``: kernel K4, the narrow-channel 3x3 conv
-  (``csrc/conv3x3.cu``).
+  (``csrc/conv3x3.cu``), on the tensor cores;
+- ``conv3x3_ablate``: K4 built with one part taken out at a time, to see
+  where its time goes (no JAX counterpart).
 """
 import time
 

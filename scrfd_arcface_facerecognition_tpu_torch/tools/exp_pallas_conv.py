@@ -14,17 +14,24 @@ computed, and lane Wp - 1 reads lane 0 as its right neighbour (the TPU
 kernel's dx roll). ``act`` is ReLU or the identity; ``scale`` and ``bias``
 default to ones and zeros. H must be a multiple of 8, as there.
 
-``conv3x3`` launches the CUDA kernel (``csrc/conv3x3.cu``) for CUDA tensors
-and runs the plain PyTorch version (``conv3x3_plain``) for CPU tensors, and
-only for them. ``launches`` counts the kernel's launches. The products of
-bf16 values are exact in f32 and both sum each P_dy in the order
-k = dx * C + c, so the two are equal; against the TPU kernel's dot (its
-own sum order) they are equal after the bf16 rounding or one bf16 step
-apart, except where a sum cancels to near zero.
+``conv3x3`` launches the CUDA kernel (``csrc/conv3x3.cu``, on the tensor
+cores) for CUDA tensors and runs the plain PyTorch version
+(``conv3x3_plain``) for CPU tensors, and only for them. ``launches``
+counts the kernel's launches. The plain version sums each P_dy in f32
+over k = dx * C + c in order (the products of bf16 values are exact);
+the kernel's tensor cores sum in an order of their own. So the two are
+held to a tolerance on the f32 sum, not to bit equality:
+``sum_tolerance_ratio`` allows one bf16 step at the larger of the two
+outputs plus |scale[f]| * 2^-12 * A, where A = ``tap_abs_sum`` is the
+sum of |w| |x| over the 9C taps. A reordered f32 sum of the 9C exact
+products errs by at most about 9C * 2^-24 * A (2^-15 * A at C=56), so
+2^-12 leaves room for the tensor cores' own rounding, while one wrong or
+dropped tap (about A / 9C, 2^-9 * A at C=56) stands far above it.
 
 The script's path (``run`` / ``main``) runs the kernel at the script's
 shapes, B=64, H=96, W=160 (Wp=256), C=F=56, against the plain version and
-cuDNN's bf16 ``conv2d`` on the W real lanes::
+cuDNN's bf16 ``conv2d``, both on the W real lanes and, for the same work
+as the kernel, on all Wp lanes::
 
     python -m scrfd_arcface_facerecognition_tpu_torch.tools.exp_pallas_conv
 """
@@ -66,17 +73,11 @@ def _affine(f: int, scale: Optional[torch.Tensor], bias: Optional[torch.Tensor],
     return scale.contiguous(), bias.contiguous()
 
 
-def conv3x3_plain(x: torch.Tensor, w3: torch.Tensor,
-                  scale: Optional[torch.Tensor] = None,
-                  bias: Optional[torch.Tensor] = None,
-                  relu: bool = False) -> torch.Tensor:
-    """The plain version: each P_dy summed in f32 over k = dx * C + c in
-    order (the products of bf16 values are exact), then (P0 + P1) + P2,
-    the affine, ReLU and bf16 rounding."""
+def _tap_sums(x: torch.Tensor, w3: torch.Tensor):
+    """[P_0, P_1, P_2], each summed in f32 over k = dx * C + c in order."""
     b, c, h, wp = x.shape
     _check_height(h)
     f = w3.shape[2]
-    scale, bias = _affine(f, scale, bias, x.device)
     xf = F.pad(x.to(torch.float32), (0, 0, 1, 1))          # zero rows
     # lane w of copy dx holds x[(w + dx - 1) mod Wp]
     xs = [torch.roll(xf, 1, dims=3), xf, torch.roll(xf, -1, dims=3)]
@@ -90,10 +91,61 @@ def conv3x3_plain(x: torch.Tensor, w3: torch.Tensor,
                 acc = acc + rows[:, ci:ci + 1] * wf[dy, dx * c + ci][:, None,
                                                                    None]
         p.append(acc)
+    return p
+
+
+def conv3x3_plain(x: torch.Tensor, w3: torch.Tensor,
+                  scale: Optional[torch.Tensor] = None,
+                  bias: Optional[torch.Tensor] = None,
+                  relu: bool = False) -> torch.Tensor:
+    """The plain version: each P_dy summed in f32 over k = dx * C + c in
+    order (the products of bf16 values are exact), then (P0 + P1) + P2,
+    the affine, ReLU and bf16 rounding."""
+    p = _tap_sums(x, w3)
+    scale, bias = _affine(w3.shape[2], scale, bias, x.device)
     out = ((p[0] + p[1]) + p[2]) * scale[:, None, None] + bias[:, None, None]
     if relu:
         out = torch.relu(out)
     return out.to(torch.bfloat16)
+
+
+def tap_abs_sum(x: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+    """A[b, f, h, w] = sum over the 9C taps of |w| * |x|, in f32, from the
+    plain version's loop: the scale of the sum's rounding error."""
+    p = _tap_sums(x.abs(), w3.abs())
+    return (p[0] + p[1]) + p[2]
+
+
+def sum_tolerance_ratio(got: torch.Tensor, want: torch.Tensor,
+                        a: torch.Tensor,
+                        scale: Optional[torch.Tensor] = None) -> float:
+    """The worst ratio of |got - want| to what the sum's order may change:
+    one bf16 step at max(|got|, |want|) + |scale[f]| * 2^-12 * a, with a
+    from ``tap_abs_sum``. At most 1 passes. -1 when the NaN positions
+    differ; equal values (the same infinity too) count as exact."""
+    g, w = got.float(), want.float()
+    nan = torch.isnan(g)
+    if not torch.equal(nan, torch.isnan(w)):
+        return -1.0
+    scale, _ = _affine(got.shape[1], scale, None, got.device)
+    m = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    _, e = torch.frexp(m)                    # m = mant * 2^e, mant in [0.5, 1)
+    step = torch.ldexp(torch.ones_like(m), e - 8)
+    allowed = step + scale.abs()[:, None, None] * 2.0 ** -12 * a.float()
+    ratio = torch.where(g == w, torch.zeros_like(g), (g - w).abs() / allowed)
+    ratio = ratio[~nan]
+    ratio = torch.where(torch.isnan(ratio), float("inf"), ratio)   # inf / inf
+    return float(ratio.max()) if ratio.numel() else 0.0
+
+
+def launch_function(lib: ctypes.CDLL):
+    """``conv3x3_launch`` of a library built from ``csrc/conv3x3.cu``,
+    typed for ctypes."""
+    fn = lib.conv3x3_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _bind():
@@ -102,11 +154,7 @@ def _bind():
     if _launch_fn is None:
         from ..cuda_build import library
 
-        fn = library(NAME).conv3x3_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _launch_fn = fn
+        _launch_fn = launch_function(library(NAME))
     return _launch_fn
 
 
@@ -190,9 +238,10 @@ def cudnn_conv(x: torch.Tensor, k: torch.Tensor, w: int,
                scale: Optional[torch.Tensor] = None,
                bias: Optional[torch.Tensor] = None, relu: bool = False):
     """The library yardstick: one bf16 ``conv2d`` (cuDNN on the card) on
-    the W real lanes, zero-padded, then the affine and ReLU; k is the
+    the first w lanes, zero-padded, then the affine and ReLU; k is the
     (F, C, 3, 3) bf16 weight. Equal to K4 on lanes < W when x's lanes >= W
-    are zero."""
+    are zero; with w = Wp it does K4's work (flops and bytes), with zero
+    lanes at the edges in place of the circular ones."""
     y = F.conv2d(x[..., :w], k, padding=1).to(torch.float32)
     if scale is not None:
         y = y * scale[:, None, None]
@@ -204,8 +253,9 @@ def cudnn_conv(x: torch.Tensor, k: torch.Tensor, w: int,
 def run(shapes: Optional[Dict[str, int]] = None, iters: int = 30,
         seed: int = 0, device=None) -> Dict[str, float]:
     """The script's path: K4 at ``shapes`` (default the script's), against
-    its plain version (bf16 steps apart, all Wp lanes) and cuDNN's bf16
-    conv (max abs difference on the W lanes), each timed."""
+    its plain version on all Wp lanes (``sum_tolerance_ratio``, and the
+    bf16 steps apart) and cuDNN's bf16 conv (max abs difference on the W
+    lanes), each timed; cuDNN on the W lanes and on all Wp lanes."""
     s = dict(SHAPES, **(shapes or {}))
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -214,14 +264,18 @@ def run(shapes: Optional[Dict[str, int]] = None, iters: int = 30,
     kt = torch.from_numpy(k.transpose(3, 2, 0, 1).copy()).to(dev).to(
         torch.bfloat16)
     y = conv3x3(x, w3)
-    ulps = bf16_ulps(y, conv3x3_plain(x, w3))
+    want = conv3x3_plain(x, w3)
+    ratio = sum_tolerance_ratio(y, want, tap_abs_sum(x, w3))
+    ulps = bf16_ulps(y, want)
     lib = cudnn_conv(x, kt, s["w"])
     ref = y[..., :s["w"]].float()
     lib_err = float((lib.float() - ref).abs().max())
     ms = device_ms(lambda: conv3x3(x, w3), iters, dev)
     lib_ms = device_ms(lambda: cudnn_conv(x, kt, s["w"]), iters, dev)
+    lib_wp_ms = device_ms(lambda: cudnn_conv(x, kt, s["wp"]), iters, dev)
     gflop = 2 * s["b"] * s["h"] * s["wp"] * 9 * s["c"] * s["f"] / 1e9
-    return dict(ms=ms, cudnn_ms=lib_ms, ulps=ulps, cudnn_max_abs=lib_err,
+    return dict(ms=ms, cudnn_ms=lib_ms, cudnn_wp_ms=lib_wp_ms, ratio=ratio,
+                ulps=ulps, cudnn_max_abs=lib_err,
                 scale=float(ref.abs().max()), gflop=gflop)
 
 
@@ -233,13 +287,14 @@ def main(argv=None) -> None:
     where = resolve_device(args.device)
     name = (torch.cuda.get_device_name(where) if where.type == "cuda"
             else "CPU, host clock")
-    print(f"K4 vs its plain version: at most {r['ulps']} bf16 steps apart; "
-          f"vs cuDNN bf16 conv2d: max abs {r['cudnn_max_abs']:.4f} (scale "
+    print(f"K4 vs its plain version: tolerance ratio {r['ratio']:.4g} "
+          f"(at most 1 passes), at most {r['ulps']} bf16 steps apart; vs "
+          f"cuDNN bf16 conv2d: max abs {r['cudnn_max_abs']:.4f} (scale "
           f"{r['scale']:.2f})")
     print(f"K4 conv3x3: {r['ms']:.3f} ms  {r['gflop'] / r['ms']:.1f} TFLOP/s "
-          f"over all {SHAPES['wp']} lanes; cuDNN bf16 conv2d on {SHAPES['w']} "
-          f"lanes {r['cudnn_ms']:.3f} ms  [{name}]")
-
+          f"over all {SHAPES['wp']} lanes; cuDNN bf16 conv2d on all "
+          f"{SHAPES['wp']} lanes {r['cudnn_wp_ms']:.3f} ms, on the "
+          f"{SHAPES['w']} real lanes {r['cudnn_ms']:.3f} ms  [{name}]")
 
 if __name__ == "__main__":
     main()

@@ -68,6 +68,30 @@ def test_k3_bound_counts_only_what_the_crops_need():
     assert bd["scratch"] == 4 * 3 * (192 * 512 + 2 * 192 * 192) * 4
 
 
+def test_k4_cases_cover_the_kernels_paths(monkeypatch):
+    """Phase 10's shapes reach C and F above 64 and off 16, Wp above one
+    256-position tile, Wp on and off the 8-lane grid (the kernel's vector
+    and lane-by-lane staging); the non-finite case puts a NaN, a +inf and
+    a -inf pixel in x, the -inf on the circular lane Wp - 1."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import exp_pallas_conv
+
+    shapes = [chip_smoke.K4_SHAPES] + [s for _, s in chip_smoke.K4_CASES]
+    assert any(s["c"] > 64 and s["c"] % 16 and s["f"] > 64 and s["f"] % 16
+               for s in shapes)
+    assert any(s["wp"] > 256 for s in shapes)
+    assert {s["wp"] % 8 == 0 for s in shapes} == {True, False}
+    assert all(s["h"] % 8 == 0 for s in shapes)
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    x, w3, k, sc, bi = chip_smoke.k4_case(
+        torch, exp_pallas_conv, np.random.default_rng(0),
+        dict(b=2, h=8, w=10, c=4, f=8, wp=12), nonfinite=True)
+    assert int(torch.isnan(x).sum()) == 1
+    assert int(torch.isinf(x).sum()) == 2
+    assert float(x[..., -1].float().min()) == -float("inf")
+    want = exp_pallas_conv.conv3x3_plain(x, w3, sc, bi)
+    assert bool(torch.isnan(want).any()) and bool(torch.isinf(want).any())
+
+
 def test_standin_expectation_is_said_and_zero_faces_fail():
     assert "NOT MET" in chip_smoke.standin_expectation(80, 80)
     assert "expectation met" in chip_smoke.standin_expectation(37, 80)

@@ -5,7 +5,10 @@ The same seeded numpy inputs go to both. Tolerances: WarpParams integers
 and orders equal, floats within 1e-6 relative, fallback flags equal; K3
 crops inside the envelope within 1e-2 u8 (the port's plain version is the
 five band passes in the reference's f32 order); K4 equal or one bf16 step
-apart on every one of the Wp lanes.
+apart on every one of the Wp lanes. K4's kernel (tensor cores, its own
+sum order) is held to its plain version by ``sum_tolerance_ratio`` <= 1;
+here that check passes a float64-summed reference and fails a misplaced or
+dropped tap.
 """
 import os
 import sys
@@ -25,7 +28,7 @@ from scrfd_arcface_facerecognition_tpu.ops import pallas_warp as jpw  # noqa: E4
 from scrfd_arcface_facerecognition_tpu_torch import ops as tops  # noqa: E402
 from scrfd_arcface_facerecognition_tpu_torch.ops import warp_params as twp  # noqa: E402
 from scrfd_arcface_facerecognition_tpu_torch.tools import (  # noqa: E402
-    exp_pallas_conv as tconv, exp_warp2 as twarp)
+    conv3x3_ablate, exp_pallas_conv as tconv, exp_warp2 as twarp)
 
 
 def _similarity(sigma, ang, cx, cy):
@@ -265,10 +268,111 @@ def test_conv3x3_refuses_heights_off_the_8_row_grid():
                torch.from_numpy(w3).to(torch.bfloat16))
 
 
+def _conv_f64(xb, wb):
+    """The definition's sum (before the affine) in float64, from bf16
+    tensors: rows zero-padded, lanes circular."""
+    xd, wd = xb.double().numpy(), wb.double().numpy()
+    b, c, h, wp = xd.shape
+    xp = np.pad(xd, ((0, 0), (0, 0), (1, 1), (0, 0)))
+    out = np.zeros((b, wd.shape[2], h, wp))
+    for dy in range(3):
+        for dx in range(3):
+            src = np.roll(xp[:, :, dy:dy + h], 1 - dx, axis=3)
+            for ci in range(c):
+                out += wd[dy, dx * c + ci][None, :, None, None] * src[:, ci:ci
+                                                                    + 1]
+    return out
+
+
+def test_tap_abs_sum_matches_a_float64_loop():
+    x, w3, _, _ = _conv_inputs(1, b=1, c=3, h=8, wp=9, f=5)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    wb = torch.from_numpy(w3).to(torch.bfloat16)
+    got = tconv.tap_abs_sum(xb, wb)
+    assert got.dtype == torch.float32 and got.shape == (1, 5, 8, 9)
+    want = _conv_f64(xb.abs(), wb.abs())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=0)
+    # the sum of |w||x| bounds the sum itself
+    assert (np.abs(_conv_f64(xb, wb)) <= want * (1 + 1e-6)).all()
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_sum_tolerance_ratio_passes_a_float64_summed_reference(relu):
+    x, w3, scale, bias = _conv_inputs(3)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    wb = torch.from_numpy(w3).to(torch.bfloat16)
+    sc, bi = torch.from_numpy(scale), torch.from_numpy(bias)
+    plain = tconv.conv3x3_plain(xb, wb, sc, bi, relu=relu)
+    a = tconv.tap_abs_sum(xb, wb)
+    assert tconv.sum_tolerance_ratio(plain, plain, a, sc) == 0.0
+    ref = _conv_f64(xb, wb) * scale[None, :, None, None] + bias[
+        None, :, None, None]
+    if relu:
+        ref = np.maximum(ref, 0.0)
+    ref = torch.from_numpy(ref).to(torch.bfloat16)
+    ratio = tconv.sum_tolerance_ratio(plain, ref, a, sc)
+    assert 0.0 <= ratio <= 1.0
+    assert not torch.equal(plain, ref)          # the orders do differ
+
+
+@pytest.mark.parametrize("fault", ["tap_at_the_wrong_dx", "channel_dropped"])
+def test_sum_tolerance_ratio_fails_a_wrong_or_dropped_tap(fault):
+    x, w3, scale, bias = _conv_inputs(4)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    wb = torch.from_numpy(w3).to(torch.bfloat16)
+    c = x.shape[1]
+    bad = wb.clone()
+    if fault == "tap_at_the_wrong_dx":      # dy=1, channel 3: dx 0 -> dx 2
+        bad[1, 2 * c + 3] += bad[1, 3]
+        bad[1, 3] = 0
+    else:                                   # channel 5's weights, all taps
+        bad[:, 5::c] = 0
+    sc, bi = torch.from_numpy(scale), torch.from_numpy(bias)
+    want = tconv.conv3x3_plain(xb, wb, sc, bi)
+    got = tconv.conv3x3_plain(xb, bad, sc, bi)
+    assert tconv.sum_tolerance_ratio(got, want, tconv.tap_abs_sum(xb, wb),
+                                     sc) > 1.0
+
+
+def test_sum_tolerance_ratio_holds_nan_positions_and_infinities():
+    want = torch.tensor([[[[1.0, float("nan"), float("inf"), -2.0]]]],
+                        dtype=torch.bfloat16)
+    a = torch.ones((1, 1, 1, 4))
+    assert tconv.sum_tolerance_ratio(want.clone(), want, a) == 0.0
+    moved = want.clone()
+    moved[..., 1], moved[..., 3] = -2.0, float("nan")
+    assert tconv.sum_tolerance_ratio(moved, want, a) == -1.0
+    lost = want.clone()
+    lost[..., 2] = 3.0                       # an infinity became finite
+    assert tconv.sum_tolerance_ratio(lost, want, a) == float("inf")
+    # one bf16 step apart passes, two do not (a = 0: no sum error allowed)
+    one = torch.tensor([[[[1.0, 1.0078125]]]], dtype=torch.bfloat16)
+    two = torch.tensor([[[[1.0, 1.015625]]]], dtype=torch.bfloat16)
+    ref = torch.tensor([[[[1.0, 1.0]]]], dtype=torch.bfloat16)
+    z = torch.zeros((1, 1, 1, 2))
+    assert tconv.sum_tolerance_ratio(one, ref, z) == pytest.approx(
+        0.0078125 / 0.0078125)
+    assert tconv.sum_tolerance_ratio(two, ref, z) == pytest.approx(2.0)
+
+
+def test_k4_ablation_variants_edit_the_kernel_source():
+    """Each variant of ``tools/conv3x3_ablate.py`` applies to the current
+    source (every edit found exactly once); timing them needs the card."""
+    full = conv3x3_ablate.variant_source("full")
+    assert "mma.sync.aligned.m16n8k16" in full
+    for name in conv3x3_ablate.VARIANTS:
+        src = conv3x3_ablate.variant_source(name)
+        assert (src == full) == (name == "full"), name
+    assert "s_ == 1234.5f" in conv3x3_ablate.variant_source("mma_only")
+    with pytest.raises(RuntimeError, match="on the card"):
+        conv3x3_ablate.run(device="cpu")
+
+
 def test_k4_script_path_runs_on_the_cpu():
     r = tconv.run(dict(b=2, h=16, w=24, c=8, f=16, wp=32), iters=1,
                   device="cpu")
-    assert r["ulps"] == 0
+    assert r["ulps"] == 0 and r["ratio"] == 0.0
+    assert r["cudnn_wp_ms"] > 0 and r["cudnn_ms"] > 0
     # cuDNN's stand-in on the CPU agrees on the W real lanes to a bf16 step
     assert r["cudnn_max_abs"] <= r["scale"] * 2 ** -7
 
