@@ -24,11 +24,14 @@ non-zero exit if it fails:
 5. the port on the card against the port on the CPU (small seeded config,
    TF32 off for convolutions and matmuls);
 6. kernel K2 (the PQ distance scorer, ``pq_adc``) against its plain
-   PyTorch version on the card, in both precisions: Q in {1, 3, 16, 80}
-   queries, G in {0, 1, 4097, 2,000,000} code rows, K in {16, 256}, M=64
-   and M=12, NaN and inf LUT entries; max abs difference relative to the
-   largest |score| (tolerance 1e-6, expected 0) and the same NaN / inf
-   positions;
+   PyTorch version on the card, in both precisions: Q in {1, 3, 13, 16,
+   80} queries (13 leaves a part-filled last chunk), G in {0, 1, 4097,
+   2,000,000} code rows, K in {16, 256}, M=64 and M=12, NaN and inf LUT
+   entries; then ``K2_EDGES``: codes views 3 and 5 bytes past 16-byte
+   alignment, M=128 (three slabs of subspaces), K=99 (the LUT staged
+   entry by entry; M=160 in two slabs); max abs difference
+   relative to the largest |score| (tolerance 1e-6, expected 0) and the
+   same NaN / inf positions;
 7. the gallery path at full width: the main path's embeddings are the
    queries; AutoGallery(tier="pq") on the card takes 1,000,000 synthetic
    identity rows (the embeddings among them at known ids) in one
@@ -38,7 +41,8 @@ non-zero exit if it fails:
    exact rerank (>= 0.95), each embedding finds itself (cosine >= 0.9999),
    stage times, PQGallery.search(rerank=0), the dense GalleryStore at the
    same rows; K2's times at these shapes against its bound, its plain
-   version and ``embedding_bag``;
+   version and ``embedding_bag``, then on the tier's filled rows alone
+   (the tier is scored whole, and half of it is empty) and at Q=1, 4, 16;
 8. the PQ gallery on the card against the CPU at 20,000 rows (same codec,
    codes and queries): ids equal, scores within 1e-5;
 9. kernel K3 (the 5-pass band-mix warp, ``warp_band``) on its experiment's
@@ -111,9 +115,15 @@ K4_CASES = (("odd", dict(b=2, h=8, w=20, c=3, f=16, wp=21)),
             ("nonfinite", dict(b=2, h=16, w=60, c=56, f=56, wp=64)))
 STANDIN = dict(frames=8, hw=(1080, 1920), max_num=10, gallery=128, conf=0.5,
                pre_nms=256, max_det=16)
-# phase 6: the (Q, G, K) grid; phase 7: the gallery path (rows, synthetic
-# identities, their per-dim noise, search k); phase 8: rows
-K2_GRID = dict(q=(1, 3, 16, 80), g=(0, 1, 4097, 2_000_000), k=(16, 256))
+# phase 6: the (Q, G, K) grid, and beyond it (M, K, G, byte offset of the
+# codes view) for each Q: views that are not 16-byte aligned; M=128, which
+# K2 stages in three slabs; K=99, whose LUT rows it stages entry by entry
+# (one slab with 16-byte code loads, two with byte loads); phase 7: the
+# gallery path (rows, synthetic identities, their per-dim noise, search
+# k); phase 8: rows
+K2_GRID = dict(q=(1, 3, 13, 16, 80), g=(0, 1, 4097, 2_000_000), k=(16, 256))
+K2_EDGES = ((64, 256, 4097, 3), (64, 256, 2_000_000, 5), (128, 256, 4097, 0),
+            (128, 256, 4097, 1), (64, 99, 4097, 0), (160, 99, 4097, 1))
 GAL = dict(rows=1_000_000, idents=100_000, sigma=0.05, k=5)
 GAL_CPU_ROWS = 20_000
 
@@ -571,36 +581,62 @@ def compare_k2(torch, pq_adc, lut, codes, precision):
     return err, rel
 
 
+def k2_lut(torch, rng, q, m, k):
+    """A normal (Q, M, K) f32 LUT on the card; from Q=3 on, query 1 is
+    NaN at one subspace and query 2 has infinite entries at another."""
+    lut = rng.normal(size=(q, m, k)).astype(np.float32)
+    if q >= 3:
+        lut[1, 5, :] = np.nan
+        lut[2, 7, : k // 2] = np.inf
+    return torch.from_numpy(lut).to(DEV)
+
+
+def k2_codes(torch, rng, g, m, k, offset=0):
+    """Uniform (G, M) u8 codes on the card, a contiguous view starting
+    ``offset`` bytes into its buffer."""
+    codes = torch.from_numpy(rng.integers(0, k, (g, m), dtype=np.uint8))
+    buf = torch.empty(g * m + offset, dtype=torch.uint8, device=DEV)
+    view = buf[offset:].view(g, m)
+    view.copy_(codes)
+    if (view.data_ptr() % 16 == 0) != (offset % 16 == 0):
+        fail(f"pq_adc: codes view at offset {offset} has the wrong "
+             f"alignment")
+    return view
+
+
 def phase_k2_vs_plain(torch, pq_adc, rep):
     rng = np.random.default_rng(2)
     worst = (0.0, 0.0)
     n_cases = 0
+
+    def check(lut, codes):
+        nonlocal worst, n_cases
+        for precision in pq_adc.PRECISIONS:
+            err, rel = compare_k2(torch, pq_adc, lut, codes, precision)
+            worst = max(worst, (err, rel), key=lambda x: x[1])
+            n_cases += 1
+
     for m in (64, 12):
         for k in K2_GRID["k"]:
             g_max = max(K2_GRID["g"]) if m == 64 else 4097
-            codes_all = torch.from_numpy(rng.integers(
-                0, k, (g_max, m), dtype=np.uint8)).to(DEV)
+            codes_all = k2_codes(torch, rng, g_max, m, k)
             for q in K2_GRID["q"]:
-                lut_np = rng.normal(size=(q, m, k)).astype(np.float32)
-                if q >= 3:        # a non-finite query and an inf entry
-                    lut_np[1, 5, :] = np.nan
-                    lut_np[2, 7, : k // 2] = np.inf
-                lut = torch.from_numpy(lut_np).to(DEV)
+                lut = k2_lut(torch, rng, q, m, k)
                 for g in K2_GRID["g"]:
-                    if g > g_max:
-                        continue
-                    codes = codes_all[:g]
-                    for precision in pq_adc.PRECISIONS:
-                        err, rel = compare_k2(torch, pq_adc, lut, codes,
-                                              precision)
-                        worst = max(worst, (err, rel), key=lambda x: x[1])
-                        n_cases += 1
+                    if g <= g_max:
+                        check(lut, codes_all[:g])
             del codes_all
+    for m, k, g, offset in K2_EDGES:
+        codes = k2_codes(torch, rng, g, m, k, offset)
+        for q in K2_GRID["q"]:
+            check(k2_lut(torch, rng, q, m, k), codes)
+        del codes
     rep.say(f"K2 vs plain, {n_cases} cases (both precisions; Q "
             f"{K2_GRID['q']}, G {K2_GRID['g']}, K {K2_GRID['k']}, M 64 and "
-            f"12, NaN and inf LUT entries): NaN/inf positions equal, max abs "
-            f"err {worst[0]:.6g} = {worst[1]:.3g} of max |score| "
-            f"(tolerance {TOL_K2}, expected 0)")
+            f"12, NaN and inf LUT entries; then (M, K, G, codes offset) "
+            f"{K2_EDGES}: unaligned codes, three slabs, K % 4 != 0): NaN/inf "
+            f"positions equal, max abs err {worst[0]:.6g} = {worst[1]:.3g} "
+            f"of max |score| (tolerance {TOL_K2}, expected 0)")
     return worst[0]
 
 
@@ -774,14 +810,27 @@ def phase_gallery_path(torch, rep, main_emb):
                 f"scores {t['lib_rel']:.3g} of max |score|), bound "
                 f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B "
                 f"at 3.35 TB/s), max abs err vs plain {errs[-1]:.6g}")
+    # the tier is scored whole: half its rows are empty (zero codes)
+    filled = codes[:n]
     for precision in pq_adc.PRECISIONS:
-        lut16 = lut[:16].contiguous()
-        ms16 = time_ms(torch, lambda: pq_adc.pq_adc_scores(lut16, codes,
+        ms_n = time_ms(torch, lambda: pq_adc.pq_adc_scores(lut, filled,
                                                            precision))
-        b16 = k2_bound(16, lut.shape[1], lut.shape[2], codes.shape[0],
+        b_n = k2_bound(lut.shape[0], lut.shape[1], lut.shape[2], n,
                        precision)
-        rep.say(f"K2 at Q=16 of the path's queries ({precision}): kernel "
-                f"{ms16:.4f} ms, bound {b16[0]:.4f} ms by {b16[1]}")
+        rep.say(f"K2 on the {n} filled rows only (G={n} of the tier's "
+                f"{codes.shape[0]}; {precision}): kernel {ms_n:.4f} ms "
+                f"(whole tier {times[precision]['ms']:.4f}), bound "
+                f"{b_n[0]:.4f} ms by {b_n[1]}")
+    for q in (1, 4, 16):
+        lut_q = lut[:q].contiguous()
+        for precision in pq_adc.PRECISIONS:
+            ms_q = time_ms(torch, lambda: pq_adc.pq_adc_scores(
+                lut_q, codes, precision))
+            b_q = k2_bound(q, lut.shape[1], lut.shape[2], codes.shape[0],
+                           precision)
+            rep.say(f"K2 at Q={q} of the path's queries ({precision}): "
+                    f"kernel {ms_q:.4f} ms, bound {b_q[0]:.4f} ms by "
+                    f"{b_q[1]}")
     sc = torch.zeros((lut.shape[0], codes.shape[0]), device=DEV)
     sort_ms = time_ms(torch, lambda: torch.sort(sc, dim=-1, descending=True,
                                                 stable=True), iters=3)

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -68,53 +68,69 @@ def nvcc_command(src: Path, out: Path) -> list:
     return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(src)]
 
 
-def _start_build(name: str):
-    """Start nvcc for ``name`` unless its library exists; returns the
-    running build (process, temporary output, final output) or None."""
-    out = library_path(name)
-    if out.exists():
-        return None
+def _compile(jobs: Dict[str, Tuple[Path, Path]]) -> Dict[str, float]:
+    """Run nvcc on each job's (source, shared library), all started
+    together; returns the seconds until each one finished. Raises on the
+    first failure, and leaves no nvcc running behind it."""
+    t0 = time.perf_counter()
+    procs, secs = {}, {}
+    try:
+        for what, (src, out) in jobs.items():
+            procs[what] = subprocess.Popen(nvcc_command(src, out),
+                                           stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)
+        for what, proc in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {what} "
+                                   f"(exit {proc.returncode}):\n{log}")
+            secs[what] = time.perf_counter() - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return secs
+
+
+def _build(names) -> Dict[str, float]:
+    """Build the named kernels whose libraries do not exist yet, each into
+    a temporary file moved into place once it is whole."""
+    todo = {n: library_path(n) for n in names if not library_path(n).exists()}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.Popen(nvcc_command(source_path(name), tmp),
-                            stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
-
-
-def _finish_build(name: str, build) -> None:
-    if build is None:
-        return
-    proc, tmp, out = build
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name} "
-                           f"(exit {proc.returncode}):\n{log}")
-    os.replace(tmp, out)
+    tmp = {n: out.with_suffix(f".{os.getpid()}.tmp")
+           for n, out in todo.items()}
+    secs = _compile({n: (source_path(n), tmp[n]) for n in todo})
+    for n, out in todo.items():
+        os.replace(tmp[n], out)
+    return {n: secs.get(n, 0.0) for n in names}
 
 
 def build_all() -> Dict[str, float]:
     """Build every kernel, one nvcc per source, all started together;
     returns the seconds each build took (0.0 for one already built)."""
-    t0 = time.perf_counter()
-    builds = {n: _start_build(n) for n in SOURCES}
-    secs = {}
-    try:
-        for n, b in builds.items():
-            _finish_build(n, b)
-            secs[n] = 0.0 if b is None else time.perf_counter() - t0
-    finally:
-        # a failed build leaves no other nvcc running behind it
-        for b in builds.values():
-            if b is not None and b[0].poll() is None:
-                b[0].kill()
-                b[0].wait()
-    return secs
+    return _build(SOURCES)
+
+
+def build_variants(name: str, sources: Dict[str, str]) -> Dict[str, Path]:
+    """Build edited copies of kernel ``name``'s source (variant name ->
+    source text) into ``BUILD_DIR/ablate/``, one nvcc each, all started
+    together; returns each variant's shared library."""
+    out = BUILD_DIR / "ablate"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for v, text in sources.items():
+        cu = out / f"{name}_{v}.cu"
+        cu.write_text(text)
+        jobs[v] = (cu, (out / f"lib{name}_{v}.so").resolve())
+    _compile({f"{name} variant {v}": job for v, job in jobs.items()})
+    return {v: lib for v, (_, lib) in jobs.items()}
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     if name not in _loaded:
-        _finish_build(name, _start_build(name))
+        _build([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]

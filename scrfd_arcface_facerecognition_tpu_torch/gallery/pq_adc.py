@@ -55,18 +55,24 @@ def adc_scores_plain(lut: torch.Tensor, codes: torch.Tensor,
     return acc
 
 
+def launch_function(lib: ctypes.CDLL):
+    """``pq_adc_launch`` of a library built from ``csrc/pq_adc.cu``, typed
+    for ctypes."""
+    fn = lib.pq_adc_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _bind():
     """The C launch function, built and loaded at first use."""
     global _launch_fn
     if _launch_fn is None:
         from ..cuda_build import library
 
-        fn = library(NAME).pq_adc_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _launch_fn = fn
+        _launch_fn = launch_function(library(NAME))
     return _launch_fn
 
 
@@ -75,9 +81,7 @@ def pq_adc_scores(lut: torch.Tensor, codes: torch.Tensor,
     """(Q, M, K) f32 LUTs x (G, M) u8 codes -> (Q, G) f32 scores.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream, or raise. Codes must be < K. On the card one
-    query's table must fit a block's shared memory (M*K <= 58,112 entries in
-    "hilo", twice that in "hi", on an H100).
+    the current stream, or raise. Codes must be < K.
     """
     _check_precision(precision)
     if lut.device.type == "cpu":

@@ -9,7 +9,9 @@ the card: ``python -m scrfd_arcface_facerecognition_tpu_torch.tools.<name>``).
 - ``exp_pallas_conv``: kernel K4, the narrow-channel 3x3 conv
   (``csrc/conv3x3.cu``), on the tensor cores;
 - ``conv3x3_ablate``: K4 built with one part taken out at a time, to see
-  where its time goes (no JAX counterpart).
+  where its time goes (no JAX counterpart);
+- ``pq_adc_ablate``: the same for K2, the PQ distance scorer
+  (``csrc/pq_adc.cu``; no JAX counterpart).
 """
 import time
 

@@ -4,7 +4,7 @@ taken out, each variant timed at the experiment's shapes on the card.
     python -m scrfd_arcface_facerecognition_tpu_torch.tools.conv3x3_ablate
 
 Each variant is a text edit of the source, checked to apply exactly once,
-built with nvcc (the flags of ``cuda_build``) into
+built with nvcc (``cuda_build.build_variants``) into
 ``build/torch_kernels/ablate/`` and bound with ctypes like the kernel:
 
 - ``full``: the kernel as it is;
@@ -72,23 +72,10 @@ def variant_source(name: str) -> str:
 def build(names=tuple(VARIANTS)) -> Dict[str, Callable]:
     """Build the variants with nvcc, all at once; returns each one's
     launch function, typed as ``conv3x3_launch``."""
-    out = cuda_build.BUILD_DIR / "ablate"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for n in names:
-        cu = out / f"{n}.cu"
-        cu.write_text(variant_source(n))
-        procs[n] = subprocess.Popen(
-            cuda_build.nvcc_command(cu, out / f"lib{n}.so"),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns = {}
-    for n, p in procs.items():
-        log, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {n}:\n{log}")
-        fns[n] = exp_pallas_conv.launch_function(
-            ctypes.CDLL(str((out / f"lib{n}.so").resolve())))
-    return fns
+    libs = cuda_build.build_variants(
+        exp_pallas_conv.NAME, {n: variant_source(n) for n in names})
+    return {n: exp_pallas_conv.launch_function(ctypes.CDLL(str(p)))
+            for n, p in libs.items()}
 
 
 def run(iters: int = 20, device=None) -> Dict[str, float]:

@@ -50,6 +50,7 @@ def test_no_module_of_the_port_imports_jax_flax_or_the_jax_package():
                 "gallery/pq_adc.py", "gallery/auto.py", "runtime/native.py",
                 "ops/warp_params.py", "tools/exp_warp2.py",
                 "tools/exp_pallas_conv.py", "tools/conv3x3_ablate.py",
+                "tools/pq_adc_ablate.py",
                 "models/onnx_proto.py",
                 "models/config_from_graph.py", "models/onnx_import.py"):
         assert mod in names, mod

@@ -112,3 +112,38 @@ def test_smoke_exits_nonzero_without_a_card_or_the_repository(tmp_path,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_k2_cases_reach_the_kernels_edges(monkeypatch):
+    """Phase 6 reaches a part-filled last chunk for both group widths (8
+    bf16, 4 f32), codes views off 16-byte alignment, a table staged in
+    three slabs (16-byte records of M * K entries above two blocks' 227
+    KB), and K % 4 != 0 (the LUT staged entry by entry), in one slab and
+    in more. On the CPU at small sizes the phase runs its case count
+    through the wrapper's plain version."""
+    qs = chip_smoke.K2_GRID["q"]
+    assert any(q > 8 and q % 8 for q in qs) and any(q > 4 and q % 4
+                                                    for q in qs)
+    edges = chip_smoke.K2_EDGES
+    assert {o % 16 != 0 for _, _, _, o in edges} == {True, False}
+    assert any(m * k * 16 > 2 * 232448 for m, k, _, _ in edges)
+    assert {m * k * 16 > 232448 for m, k, _, _ in edges if k % 4} == {
+        True, False}
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import pq_adc
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "K2_GRID",
+                        dict(q=(1, 3, 13), g=(0, 1, 70), k=(16, 32)))
+    monkeypatch.setattr(chip_smoke, "K2_EDGES", ((64, 256, 50, 3),
+                                                 (32, 10, 40, 0)))
+    said = []
+    rep = chip_smoke.Report("CPU")
+    monkeypatch.setattr(rep, "say", said.append)
+    before = pq_adc.launches
+    assert chip_smoke.phase_k2_vs_plain(torch, pq_adc, rep) == 0.0
+    assert pq_adc.launches == before
+    # M=64: 2 K x 3 Q x 3 G; M=12: 2 K x 3 Q x 3 G; edges: 2 x 3 Q; x 2
+    assert said[0].startswith(f"K2 vs plain, {(18 + 18 + 6) * 2} cases")
+    view = chip_smoke.k2_codes(torch, np.random.default_rng(0), 5, 64, 256, 3)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 3

@@ -27,8 +27,10 @@ from scrfd_arcface_facerecognition_tpu import ops as jops  # noqa: E402
 from scrfd_arcface_facerecognition_tpu.ops import pallas_warp as jpw  # noqa: E402
 from scrfd_arcface_facerecognition_tpu_torch import ops as tops  # noqa: E402
 from scrfd_arcface_facerecognition_tpu_torch.ops import warp_params as twp  # noqa: E402
+from scrfd_arcface_facerecognition_tpu_torch import cuda_build  # noqa: E402
 from scrfd_arcface_facerecognition_tpu_torch.tools import (  # noqa: E402
-    conv3x3_ablate, exp_pallas_conv as tconv, exp_warp2 as twarp)
+    conv3x3_ablate, exp_pallas_conv as tconv, exp_warp2 as twarp,
+    pq_adc_ablate)
 
 
 def _similarity(sigma, ang, cx, cy):
@@ -366,6 +368,42 @@ def test_k4_ablation_variants_edit_the_kernel_source():
     assert "s_ == 1234.5f" in conv3x3_ablate.variant_source("mma_only")
     with pytest.raises(RuntimeError, match="on the card"):
         conv3x3_ablate.run(device="cpu")
+
+
+def test_k2_ablation_variants_edit_the_kernel_source():
+    """Each variant of ``tools/pq_adc_ablate.py`` applies to the current
+    ``csrc/pq_adc.cu`` (every edit found exactly once), the docstring names
+    every variant, and the variants that still compute the scores are
+    named as such; timing them needs the card."""
+    full = pq_adc_ablate.variant_source("full")
+    assert "Grp::load(tj + c * GB, w);" in full
+    for name in pq_adc_ablate.VARIANTS:
+        src = pq_adc_ablate.variant_source(name)
+        assert (src == full) == (name == "full"), name
+        assert f"- ``{name}``:" in pq_adc_ablate.__doc__, name
+    assert set(pq_adc_ablate.EXACT) < set(pq_adc_ablate.VARIANTS)
+    exact_line = ", ".join(f"``{n}``" for n in pq_adc_ablate.EXACT[:-1])
+    assert exact_line in " ".join(pq_adc_ablate.__doc__.split())
+    assert "Grp::load" not in pq_adc_ablate.variant_source("no_lookup")
+    assert "mix_(h_)" in pq_adc_ablate.variant_source("lookup_only")
+    assert "1234.5f" in pq_adc_ablate.variant_source("lookup_only")
+    assert "want = MaxW;" in pq_adc_ablate.variant_source("w_max")
+    assert set(pq_adc_ablate.SMALL_Q_VARIANTS) <= set(pq_adc_ablate.EXACT)
+    with pytest.raises(RuntimeError, match="on the card"):
+        pq_adc_ablate.run(device="cpu")
+
+
+def test_build_variants_starts_one_compiler_per_variant(tmp_path,
+                                                        monkeypatch):
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "nvcc_path", lambda: "true")
+    libs = cuda_build.build_variants("pq_adc", {"a": "// a", "b": "// b"})
+    assert set(libs) == {"a", "b"}
+    assert libs["a"] == (tmp_path / "ablate" / "libpq_adc_a.so").resolve()
+    assert (tmp_path / "ablate" / "pq_adc_b.cu").read_text() == "// b"
+    monkeypatch.setattr(cuda_build, "nvcc_path", lambda: "false")
+    with pytest.raises(RuntimeError, match="pq_adc variant"):
+        cuda_build.build_variants("pq_adc", {"a": "// a"})
 
 
 def test_k4_script_path_runs_on_the_cpu():
