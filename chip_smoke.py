@@ -50,11 +50,15 @@ non-zero exit if it fails:
    K1), with its launch count reset just before and read just after; then
    against its plain version on that workload and on stress sets (scales
    to 8, level-1 canvas crops, rotations past the envelope and upside
-   down, crops past the frame edge, 512-wide and 400-wide frames), max abs
-   error in u8 units (tolerance 1e-3, expected 0); kernel / plain / bound
-   times (the bound from what the crops need, traced back through the
-   passes' taps), the f32 intermediates' HBM traffic and its deviation
-   from exact bilinear;
+   down, crops past the frame edge, 512-wide and 400-wide frames) and 12
+   hand-made edge crops (NaN and infinite parameters, |v| = 1, frame
+   indices outside [0, B)), max abs error in u8 units (tolerance 1e-3,
+   expected 0), and the ranges the kernel used equal to
+   ``exp_warp2.fused_plan``'s; kernel / plain / bound times at 320 crops
+   and the kernel and bound at 80 (the bound from what the crops need,
+   traced back through the passes' taps), the fused kernel's shared
+   memory a block, blocks an SM and waves, the peak device memory of one
+   call, and K3's deviation from exact bilinear;
 10. kernel K4 (the narrow 3x3 conv on the tensor cores, ``conv3x3``) on
    its experiment's path (``tools.exp_pallas_conv.run``: B=64, H=96,
    W=160, Wp=256, C=F=56), with its launch count reset just before and
@@ -907,9 +911,7 @@ def k3_bound(frames_planar, canvas_planar, prm):
     each pass's taps with non-zero weight): the f32 crops written once,
     the params and the needed source pixels (3 channels) read once; or
     K3_FLOPS_PER_POSITION for each needed output position of the five
-    passes at the f32 rate. Also the f32 intermediates this design moves
-    through device memory: its scratch, all of it written, and at least
-    the needed intermediate values read back."""
+    passes at the f32 rate."""
     from scrfd_arcface_facerecognition_tpu_torch.ops import warp_params as wp
     from scrfd_arcface_facerecognition_tpu_torch.tools import exp_warp2
 
@@ -920,23 +922,27 @@ def k3_bound(frames_planar, canvas_planar, prm):
     positions = sum(counts)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = positions * K3_FLOPS_PER_POSITION / FP32_FLOPS_PER_S * 1e3
-    scratch = f * 3 * (wp.Q * wp.PW + 2 * wp.Q * wp.Q) * 4
-    written = f * 3 * (wp.Q * wp.PW + 3 * wp.Q * wp.Q) * 4
-    read = 3 * sum(counts[1:]) * 4
     return dict(ms=max(t_bytes, t_ops),
                 by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, src_px=src_px, positions=positions,
-                flops=positions * K3_FLOPS_PER_POSITION, scratch=scratch,
-                inter_written=written, inter_read=read,
-                inter_ms=(written + read) / HBM_BYTES_PER_S * 1e3)
+                flops=positions * K3_FLOPS_PER_POSITION)
 
 
 def compare_k3(torch, exp_warp2, frames_planar, canvas_planar, prm):
     """K3 vs its plain version on the same card tensors: same NaN
-    positions, and the max abs difference of the rest in u8 units."""
-    got = exp_warp2.warp_crops_band(frames_planar, canvas_planar, prm)
+    positions, and the max abs difference of the rest in u8 units; and the
+    ranges the kernel used equal to ``fused_plan``'s."""
+    f = prm.iparams.shape[0]
+    plan = torch.full((f, exp_warp2.PLAN_COLS), -7, dtype=torch.int32,
+                      device=DEV)
+    got = exp_warp2.warp_crops_band(frames_planar, canvas_planar, prm,
+                                    plan=plan)
     want = exp_warp2.warp_crops_band_plain(frames_planar, canvas_planar, prm)
     torch.cuda.synchronize()
+    if not torch.equal(plan.long(), exp_warp2.fused_plan(prm)):
+        bad = int((plan.long() != exp_warp2.fused_plan(prm)).any(1).sum())
+        fail(f"warp_band: the kernel's ranges differ from fused_plan on "
+             f"{bad} of {f} crops")
     if got.shape != want.shape:
         fail(f"warp_band: shape {tuple(got.shape)} != {tuple(want.shape)}")
     if not torch.equal(torch.isnan(got), torch.isnan(want)):
@@ -981,6 +987,22 @@ def k3_stress(torch, rng, nb, h, w, n):
     return wp.planarize(frames), wp.planarize(canvas), prm
 
 
+def k3_edges(torch, prm):
+    """A copy of ``prm`` with hand-made crops in its first 12 rows: NaN and
+    infinite sigma / u / v / my / mx (written all NaN, or zeros for my and
+    mx at +-inf), |v| = 1 both ways, frame indices outside [0, B)."""
+    nan, inf = float("nan"), float("inf")
+    fp, ip = prm.fparams.clone(), prm.iparams.clone()
+    for k, (col, val) in enumerate(((0, nan), (1, nan), (2, nan), (3, nan),
+                                    (4, nan), (0, inf), (1, -inf), (2, inf),
+                                    (3, inf), (4, -inf))):
+        fp[k, col] = val
+    fp[10, 1:3] = torch.tensor([-1.0, 1.0])
+    fp[11, 1:3] = torch.tensor([1.0, -1.0])
+    ip[10, 0], ip[11, 0] = -1, 1 << 20
+    return prm._replace(iparams=ip, fparams=fp)
+
+
 def phase_k3(torch, rep):
     """K3's path (the experiment script's run, counts reset just before and
     read just after), then K3 against its plain version on the workload and
@@ -1017,15 +1039,28 @@ def phase_k3(torch, rep):
         lv = sprm.iparams[:, 1]
         cases.append(f"{sb}x{sh}x{sw}: {sn} crops, {int((lv == 1).sum())} "
                      f"at level 1, {int(sprm.fallback.sum())} fallback")
+    edges = k3_edges(torch, sprm)
+    errs.append(compare_k3(torch, exp_warp2, sfp, scp, edges))
+    dead = int(exp_warp2.fused_plan(edges)[:, 6].sum())
     rep.say(f"K3 vs plain: workload {errs[0]:.6g} u8; stress sets ("
             + "; ".join(cases) + f"): " + ", ".join(f"{e:.6g}" for e in
-                                                    errs[1:])
-            + f" u8 (tolerance {TOL_U8}, expected 0)")
+                                                    errs[1:4])
+            + f" u8; the last set with 12 hand-made edge crops ({dead} "
+            f"written all NaN): {errs[4]:.6g} u8 (tolerance {TOL_U8}, "
+            f"expected 0); the kernel's ranges equal fused_plan's on every "
+            f"crop")
 
     ms = time_ms(torch, lambda: exp_warp2.warp_crops_band(fp, cp, prm))
     plain_ms = time_ms(torch, lambda: exp_warp2.warp_crops_band_plain(
         fp, cp, prm), iters=2)
     bd = k3_bound(fp, cp, prm)
+    # F = 80 crops of the same frames (make_workload's first 80 draws)
+    fr80, cv80, _, _, prm80 = exp_warp2.make_workload(
+        np.random.default_rng(0), nb, 80, fh=h, fw=w, device=DEV)
+    fp80, cp80 = planarize(fr80), planarize(cv80)
+    ms80 = time_ms(torch, lambda: exp_warp2.warp_crops_band(fp80, cp80,
+                                                            prm80))
+    bd80 = k3_bound(fp80, cp80, prm80)
     chk = exp_warp2.check(device=DEV)
     rep.say(f"K3 times at {nb}x{h}x{w} / {nc} crops (cold L2): kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library n/a (no single "
@@ -1034,14 +1069,29 @@ def phase_k3(torch, rep):
             f"the crops, the params and {bd['src_px']} needed source pixels "
             f"x 3 channels; {bd['positions']} needed positions x "
             f"{K3_FLOPS_PER_POSITION} flops = {bd['flops']} at 67 TFLOP/s); "
-            f"kernel / bound {ms / bd['ms']:.1f}")
-    rep.say(f"K3 f32 intermediates (one launch a pass): {bd['scratch']} B of "
-            f"scratch a call, {bd['inter_written']} B written and at least "
-            f"{bd['inter_read']} B (the needed values) read back through "
-            f"HBM, at least {bd['inter_ms']:.4f} ms at 3.35 TB/s; K3 vs "
-            f"exact bilinear (check, noise frames, {chk['crops']} crops): "
-            f"mean {chk['mean']:.4f}, p99 {chk['p99']:.3f}, max "
-            f"{chk['max']:.3f} u8")
+            f"kernel / bound {ms / bd['ms']:.1f}; at 80 crops: kernel "
+            f"{ms80:.4f} ms, bound {bd80['ms']:.4f} ms by {bd80['by']}")
+    occ = exp_warp2.occupancy()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slots = occ["blocks_per_sm"] * sms
+    del fr80, cv80, fp80, cp80, prm80
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    exp_warp2.warp_crops_band(fp, cp, prm)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    rep.say(f"K3 fused (one launch a call, one block per crop): "
+            f"{occ['smem_bytes']} B of shared memory a block (a ring of "
+            f"{exp_warp2.RING} p3 rows), {occ['regs']} registers a thread, "
+            f"{occ['blocks_per_sm']} blocks an SM (occupancy API) on {sms} "
+            f"SMs: {nc / slots:.2f} waves at F = {nc}, "
+            f"{80 / slots:.2f} at F = 80; peak device memory of one "
+            f"call {peak} B above what was allocated before it (the "
+            f"{nc * 3 * 112 * 112 * 4} B of crops); K3 vs exact bilinear "
+            f"(check, noise frames, {chk['crops']} crops): mean "
+            f"{chk['mean']:.4f}, p99 {chk['p99']:.3f}, max {chk['max']:.3f} "
+            f"u8")
     return dict(launches=launches, err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=bd["ms"], bound_by=bd["by"])
 

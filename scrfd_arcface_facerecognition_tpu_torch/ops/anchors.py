@@ -14,6 +14,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 SCRFD_STRIDES: Tuple[int, ...] = (8, 16, 32)
 SCRFD_NUM_ANCHORS: int = 2
 
@@ -38,18 +40,20 @@ def _anchor_centers_on(height: int, width: int, stride: int,
 
 def anchor_centers(height: int, width: int, stride: int,
                    num_anchors: int = SCRFD_NUM_ANCHORS,
-                   device="cpu") -> torch.Tensor:
-    """(H*W*A, 2) float32 anchor centers in input-image pixels."""
+                   device=None) -> torch.Tensor:
+    """(H*W*A, 2) float32 anchor centers in input-image pixels, on
+    ``device`` (None: the card)."""
     return _anchor_centers_on(height, width, stride, num_anchors,
-                              torch.device(device))
+                              resolve_device(device))
 
 
 def scrfd_anchor_table(input_size: Tuple[int, int],
                        strides: Sequence[int] = SCRFD_STRIDES,
                        num_anchors: int = SCRFD_NUM_ANCHORS,
-                       device="cpu") -> torch.Tensor:
+                       device=None) -> torch.Tensor:
     """Anchor centers of every stride at ``input_size`` (h, w), stride-8
-    first (640x640 -> 16800 rows)."""
+    first (640x640 -> 16800 rows), on ``device`` (None: the card)."""
     h, w = input_size
+    device = resolve_device(device)
     return torch.cat([anchor_centers(h // s, w // s, s, num_anchors, device)
                       for s in strides], dim=0)

@@ -5,13 +5,14 @@ workload, reference check and timing as functions (``main`` runs them on
 the card: ``python -m scrfd_arcface_facerecognition_tpu_torch.tools.<name>``).
 
 - ``exp_warp2``: kernel K3, the 5-pass band-mix face warp
-  (``csrc/warp_band.cu``);
+  (``csrc/warp_band.cu``, all five passes in one launch);
 - ``exp_pallas_conv``: kernel K4, the narrow-channel 3x3 conv
   (``csrc/conv3x3.cu``), on the tensor cores;
 - ``conv3x3_ablate``: K4 built with one part taken out at a time, to see
   where its time goes (no JAX counterpart);
 - ``pq_adc_ablate``: the same for K2, the PQ distance scorer
-  (``csrc/pq_adc.cu``; no JAX counterpart).
+  (``csrc/pq_adc.cu``; no JAX counterpart);
+- ``warp_band_ablate``: the same for K3 (no JAX counterpart).
 """
 import time
 

@@ -18,10 +18,14 @@ outside the envelope (``WarpParams.fallback``), and the passes differ from
 single-pass bilinear by O(tan phi) in tap placement, so K3's contract is
 the five passes themselves, not K1's exact warp.
 
-``warp_crops_band`` launches the CUDA kernel (``csrc/warp_band.cu``) for
-CUDA tensors and runs the plain PyTorch version
-(``warp_crops_band_plain``, a transcription of ``_band_mix``) for CPU
-tensors, and only for them. ``launches`` counts the kernel's launches.
+``warp_crops_band`` launches the CUDA kernel (``csrc/warp_band.cu``, all
+five passes in one launch, one block per crop) for CUDA
+tensors and runs the plain PyTorch version (``warp_crops_band_plain``, a
+transcription of ``_band_mix``) for CPU tensors, and only for them.
+``launches`` counts the kernel's launches. ``fused_plan`` states the
+window arithmetic the kernel relies on to keep the passes in shared
+memory: which positions of each pass the crop depends on, and which p3
+rows each pass-4 group reads from the kernel's ring of ``RING`` rows.
 
 The script's path: ``make_workload`` (the same numpy draws as the JAX
 script, so one seed gives both packages the same frames and matrices),
@@ -56,8 +60,15 @@ BAND_SRC = 32        # pass-1 band (u8 source, 16-aligned)
 BAND_SCALE = 40      # pass-2 band (8-aligned)
 BAND_HX = 48         # shear-x bands (passes 3 and 5)
 BAND_VY = 72         # shear-y band (pass 4)
+# the fused kernel's ring of p3 rows y: one pass-4 window, since a group's
+# rows are produced only after the group before it has read the ring
+RING = BAND_VY
+G4 = LANE_OFF // G   # the first pass-4 group whose rows the crop keeps (5)
+NG4 = OUT // G       # pass-4 groups the crop keeps (14)
+PLAN_COLS = 8 + 2 * NG4
 launches = 0
 _launch_fn = None
+_occupancy_fn = None
 
 RowsOf = Callable[[torch.Tensor], torch.Tensor]
 
@@ -173,11 +184,11 @@ def warp_crops_band_plain(frames_planar: torch.Tensor,
 
 
 def _taps(alpha, beta, gamma, n_out: int, lanes: torch.Tensor, width: int,
-          src_rows: int, band: int, align: int):
+          src_rows: int, band: int, align: int, nonzero: bool = True):
     """The taps of one pass's outputs (F, n_out, len(lanes)): source rows
     floor(pos) and floor(pos) + 1 that lie inside the group's band window
-    and have a non-zero hat weight, as (2, F, n_out, L) int64 rows and
-    (2, F, n_out, L) bool ok. A NaN position has no taps."""
+    and (with ``nonzero``) have a non-zero hat weight, as (2, F, n_out, L)
+    int64 rows and (2, F, n_out, L) bool ok. A NaN position has no taps."""
     dev = alpha.device
     i = torch.arange(n_out, dtype=torch.float32, device=dev)
     lf = lanes.to(device=dev, dtype=torch.float32)
@@ -191,8 +202,9 @@ def _taps(alpha, beta, gamma, n_out: int, lanes: torch.Tensor, width: int,
     rows, oks = [], []
     for k in (0.0, 1.0):
         r = t0 + k
-        ok = ((r >= j0) & (r < j0 + band) & (r < src_rows)
-              & (1.0 - torch.abs(pos - r) > 0.0))
+        ok = (r >= j0) & (r < j0 + band) & (r < src_rows)
+        if nonzero:
+            ok &= 1.0 - torch.abs(pos - r) > 0.0
         rows.append(torch.where(ok, r, 0.0).to(torch.int64))
         oks.append(ok)
     return torch.stack(rows), torch.stack(oks)
@@ -204,23 +216,17 @@ def _mark(dst: torch.Tensor, ok: torch.Tensor, *idx: torch.Tensor) -> None:
     dst[tuple(t[ok] for t in idx)] = True
 
 
-def needed(frames_planar: torch.Tensor, canvas_planar: torch.Tensor,
-           params: WarpParams):
-    """What the crops depend on, traced back from pass 5's kept outputs
-    through each pass's taps with non-zero weight: the per-pass counts of
-    needed outputs (pass 5's 112 x 112 a crop first, pass 1's last) and
-    the bool masks (B, H, W) of the frame and canvas pixels read (all 3
-    channels of each). The crops do not change when any other source
-    pixel does."""
+def needed_masks(params: WarpParams):
+    """The intermediate positions the crops depend on, traced back from
+    pass 5's kept outputs through each pass's taps with non-zero weight:
+    bool masks of p4 (F, y, x), p3 (F, x, y), p2 (F, x, y) and pass 1's
+    a1 (F, y, lane)."""
     f = params.iparams.shape[0]
     dev = params.fparams.device
-    ip = params.iparams.to(torch.int64)
-    b, level, ox = ip[:, 0], ip[:, 1], ip[:, 3]
-    sigma, u, v, my, mx = (params.fparams[:, k] for k in range(5))
+    sigma, u, v, _, mx = (params.fparams[:, k] for k in range(5))
     zero, one = torch.zeros_like(sigma), torch.ones_like(sigma)
     fi = torch.arange(f, device=dev)[:, None, None]
     lanes_q = torch.arange(Q, device=dev)
-    counts = [f * OUT * OUT]
 
     # pass 5 output (x = i, y = l) reads p4[y = l, x = tap]
     n4 = torch.zeros((f, Q, Q), dtype=torch.bool, device=dev)
@@ -244,7 +250,25 @@ def needed(frames_planar: torch.Tensor, canvas_planar: torch.Tensor,
                   BAND_SCALE, 8)
     for k in range(2):
         _mark(n1, ok[k] & n2, fi, lanes_q, r[k])
-    counts += [int(n.sum()) for n in (n4, n3, n2, n1)]
+    return n4, n3, n2, n1
+
+
+def needed(frames_planar: torch.Tensor, canvas_planar: torch.Tensor,
+           params: WarpParams):
+    """What the crops depend on (``needed_masks``): the per-pass counts
+    of needed outputs (pass 5's 112 x 112 a crop first, pass 1's last) and
+    the bool masks (B, H, W) of the frame and canvas pixels read (all 3
+    channels of each). The crops do not change when any other source
+    pixel does."""
+    f = params.iparams.shape[0]
+    dev = params.fparams.device
+    ip = params.iparams.to(torch.int64)
+    b, level, ox = ip[:, 0], ip[:, 1], ip[:, 3]
+    sigma, my = params.fparams[:, 0], params.fparams[:, 3]
+    zero = torch.zeros_like(sigma)
+    lanes_q = torch.arange(Q, device=dev)
+    n4, n3, n2, n1 = needed_masks(params)
+    counts = [f * OUT * OUT] + [int(n.sum()) for n in (n4, n3, n2, n1)]
 
     # pass 1 output (y = i, lane l) reads source (b, tap, ox + l)
     hits = []
@@ -267,29 +291,138 @@ def needed(frames_planar: torch.Tensor, canvas_planar: torch.Tensor,
     return counts, hits[0], hits[1]
 
 
+# --------------------------------------------------------------------------
+# the fused kernel's window arithmetic
+
+
+def _span(alpha, beta, gamma, i0, i1, l0, l1):
+    """[floor(min pos), floor(max pos) + 2) of pos = (alpha * i + beta * l)
+    + gamma over i in [i0, i1], l in [l0, l1], int64 over the broadcast of
+    the arguments: both taps of every position in the box. f32 rounding is
+    monotone, so pos is monotone in i and in l and the corners bound it."""
+    def f32(t):
+        return torch.as_tensor(t, device=alpha.device).to(torch.float32)
+
+    pos = torch.stack(torch.broadcast_tensors(
+        *[(alpha * f32(i) + beta * f32(l)) + gamma
+          for i in (i0, i1) for l in (l0, l1)]))
+    return (_f32_to_i64(torch.floor(pos.amin(0))),
+            _f32_to_i64(torch.floor(pos.amax(0))) + 2)
+
+
+def fused_plan(params: WarpParams) -> torch.Tensor:
+    """The ranges the fused kernel computes each pass over, per crop, as
+    (F, PLAN_COLS) int64 (the kernel writes the same table, in int32, when
+    asked): columns 0-1 the p4 x lanes [L4lo, L4hi) pass 5 can tap, 2-3 the
+    p2 x rows [L3lo, L3hi) pass 3 can tap, 4-5 the p3 rows y [Ylo, Yhi)
+    passes 1-3 produce, 6 one for a crop written all NaN (a non-finite
+    sigma, u or v, or a NaN my or mx; its other columns 0), 7 zero; then
+    for each kept pass-4 group g (rows 8 (G4 + g) ..), the p3 rows
+    [rd_lo, rd_hi) it can read, NG4 columns each.
+
+    Each range is the union of the band windows of the groups that read
+    it (``band_start``), cut to ``_span`` over the box of positions read,
+    and to the canvas. The kernel produces p3 rows in order and reads group
+    g's rows only after producing up to rd_hi(g), from a ring of ``RING``
+    rows: the CPU tests hold these ranges to cover every tap."""
+    sigma, u, v, my, mx = (params.fparams[:, k] for k in range(5))
+    dev = sigma.device
+    one = torch.ones_like(sigma)
+    dead = (~(torch.isfinite(sigma) & torch.isfinite(u) & torch.isfinite(v))
+            | my.isnan() | mx.isnan())
+    bases = torch.arange(Q // G, dtype=torch.float32, device=dev) * G
+
+    def j0s(beta, gamma, band):              # (F, Q // G), alpha = 1
+        bm = torch.minimum(beta * 0.0, beta * float(Q - 1))
+        return band_start(one[:, None], bm[:, None], gamma[:, None], bases,
+                          Q, band, 8)
+
+    g3, g4, g5 = -u * CQ, -v * CQ, (CQ - C0) - u * CQ
+    j3 = j0s(u, g3, BAND_HX)
+    j4 = j0s(v, g4, BAND_VY)[:, G4:G4 + NG4]
+    j5 = j0s(u, g5, BAND_HX)[:, :OUT // G]
+    # p4 lanes x that pass 5 (x_out in [0, OUT), y kept) can tap
+    lo, hi = _span(one, u, g5, 0, OUT - 1, LANE_OFF, LANE_OFF + OUT - 1)
+    l4lo = torch.maximum(j5[:, 0], lo)
+    l4hi = torch.maximum(torch.minimum(j5[:, -1] + BAND_HX, hi).clamp(max=Q),
+                         l4lo)
+    has4 = l4hi > l4lo
+    # p3 rows y that each pass-4 group (y in 8 rows, x in L4) can tap
+    y0 = (G4 + torch.arange(NG4, device=dev)) * G
+    lo, hi = _span(one[:, None], v[:, None], g4[:, None], y0, y0 + G - 1,
+                   l4lo[:, None], l4hi[:, None] - 1)
+    rd_lo = torch.maximum(j4, lo)
+    rd_hi = torch.maximum(torch.minimum(j4 + BAND_VY, hi).clamp(max=Q), rd_lo)
+    rd_lo = torch.where(has4[:, None], rd_lo, 0)
+    rd_hi = torch.where(has4[:, None], rd_hi, 0)
+    ylo, yhi = rd_lo.amin(1), rd_hi.amax(1)
+    # p2 rows x that pass 3 (x in L4, y in [Ylo, Yhi)) can tap
+    has3 = yhi > ylo
+    lo, hi = _span(one, u, g3, l4lo, l4hi - 1, ylo, yhi - 1)
+    first = j3.gather(1, (l4lo // G).clamp(0, Q // G - 1)[:, None])[:, 0]
+    last = j3.gather(1, ((l4hi - 1) // G).clamp(0, Q // G - 1)[:, None])[:, 0]
+    l3lo = torch.maximum(first, lo)
+    l3hi = torch.maximum(torch.minimum(last + BAND_HX, hi).clamp(max=Q), l3lo)
+    l3lo, l3hi = (torch.where(has3, t, 0) for t in (l3lo, l3hi))
+    zero = torch.zeros_like(l4lo)
+    plan = torch.cat([torch.stack([l4lo, l4hi, l3lo, l3hi, ylo, yhi, zero,
+                                   zero], 1), rd_lo, rd_hi], 1)
+    plan[dead] = 0
+    plan[dead, 6] = 1
+    return plan
+
+
+def launch_function(lib: ctypes.CDLL):
+    """``warp_band_launch`` of a library built from ``csrc/warp_band.cu``,
+    typed for ctypes."""
+    fn = lib.warp_band_launch
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _bind():
     """The C launch function, built and loaded at first use."""
     global _launch_fn
     if _launch_fn is None:
         from ..cuda_build import library
 
-        fn = library(NAME).warp_band_launch
-        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 5)
-        fn.restype = ctypes.c_int
-        _launch_fn = fn
+        _launch_fn = launch_function(library(NAME))
     return _launch_fn
 
 
+def occupancy() -> Dict[str, int]:
+    """The fused kernel on the current card, from the CUDA occupancy API:
+    shared memory a block (bytes, dynamic and static), blocks an SM and
+    registers a thread, at ``RING`` ring rows."""
+    global _occupancy_fn
+    if _occupancy_fn is None:
+        from ..cuda_build import library
+
+        fn = library(NAME).warp_band_occupancy
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
+        _occupancy_fn = fn
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    rc = _occupancy_fn(RING, *(ctypes.byref(x) for x in vals))
+    if rc != 0:
+        raise RuntimeError(f"warp_band occupancy query failed: CUDA error {rc}")
+    return dict(smem_bytes=vals[0].value, blocks_per_sm=vals[1].value,
+                regs=vals[2].value)
+
+
 def warp_crops_band(frames_planar: torch.Tensor, canvas_planar: torch.Tensor,
-                    params: WarpParams) -> torch.Tensor:
+                    params: WarpParams,
+                    plan: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, 3, H, W) u8 frames, (B, 3, CH, CW) u8 letterbox canvases and
     their ``WarpParams`` -> (F, 112, 112, 3) f32 crops (y, x, BGR).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream, or raise.
+    the current stream, or raise. ``plan``, an (F, PLAN_COLS) int32 CUDA
+    tensor, receives the ranges the kernel used (``fused_plan``'s table).
     """
     if frames_planar.device.type == "cpu":
         return warp_crops_band_plain(frames_planar, canvas_planar, params)
@@ -314,21 +447,23 @@ def warp_crops_band(frames_planar: torch.Tensor, canvas_planar: torch.Tensor,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("warp_band: inputs must be contiguous")
     dev = frames_planar.device
+    if plan is not None and (plan.shape != (f, PLAN_COLS)
+                             or plan.dtype != torch.int32
+                             or plan.device != dev
+                             or not plan.is_contiguous()):
+        raise ValueError(f"warp_band: plan must be a contiguous ({f}, "
+                         f"{PLAN_COLS}) int32 tensor on {dev}")
     out = torch.empty((f, OUT, OUT, 3), dtype=torch.float32, device=dev)
     if f == 0:
         return out
-    # f32 intermediates: pass 1 out, then two Q x Q buffers in turn
-    buf_a = torch.empty((f, 3, Q, PW), dtype=torch.float32, device=dev)
-    buf_b = torch.empty((f, 3, Q, Q), dtype=torch.float32, device=dev)
-    buf_c = torch.empty((f, 3, Q, Q), dtype=torch.float32, device=dev)
     nb, _, fh, fw = frames_planar.shape
     _, _, ch, cw = canvas_planar.shape
     fn = _bind()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(frames_planar.data_ptr(), nb, fh, fw, canvas_planar.data_ptr(),
             ch, cw, params.iparams.data_ptr(), params.fparams.data_ptr(), f,
-            buf_a.data_ptr(), buf_b.data_ptr(), buf_c.data_ptr(),
-            out.data_ptr(), stream)
+            RING, out.data_ptr(), None if plan is None else plan.data_ptr(),
+            stream)
     if rc != 0:
         raise RuntimeError(f"warp_band kernel launch failed: CUDA error {rc}")
     global launches

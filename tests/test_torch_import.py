@@ -61,11 +61,13 @@ def test_no_module_of_the_port_imports_jax_flax_or_the_jax_package():
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from scrfd_arcface_facerecognition_tpu_torch import (
-        Detector, Embedder, FacePipeline, resolve_device)
+        Detector, Embedder, FacePipeline, ops, resolve_device)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (FacePipeline, Detector, Embedder,
-                 lambda: resolve_device("cuda")):
+                 lambda: resolve_device("cuda"),
+                 lambda: ops.anchor_centers(4, 4, 8),
+                 lambda: ops.scrfd_anchor_table((64, 64))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert resolve_device("cpu").type == "cpu"

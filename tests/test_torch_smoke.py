@@ -64,8 +64,14 @@ def test_k3_bound_counts_only_what_the_crops_need():
     t_bytes, t_ops = bd["bytes"] / 3.35e9, bd["flops"] / 67e9
     assert bd["ms"] == pytest.approx(max(t_bytes, t_ops))
     assert bd["by"] == ("bytes" if t_bytes >= t_ops else "operations")
-    # the scratch: pass 1's (F, 3, 192, 512) and two (F, 3, 192, 192), f32
-    assert bd["scratch"] == 4 * 3 * (192 * 512 + 2 * 192 * 192) * 4
+    # the fused kernel computes each pass over fused_plan's ranges: all
+    # that is needed, and far less than every position of every pass
+    plan = exp_warp2.fused_plan(prm)
+    l4, l3, ys = (plan[:, 1] - plan[:, 0], plan[:, 3] - plan[:, 2],
+                  plan[:, 5] - plan[:, 4])
+    computed = [112 * l4, ys * l4, ys * l3]
+    assert all(n <= int(c.sum()) for n, c in zip(counts[1:4], computed))
+    assert sum(int(c.sum()) for c in computed) < 0.5 * 4 * 3 * 192 * 192
 
 
 def test_k4_cases_cover_the_kernels_paths(monkeypatch):

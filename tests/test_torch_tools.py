@@ -30,7 +30,7 @@ from scrfd_arcface_facerecognition_tpu_torch.ops import warp_params as twp  # no
 from scrfd_arcface_facerecognition_tpu_torch import cuda_build  # noqa: E402
 from scrfd_arcface_facerecognition_tpu_torch.tools import (  # noqa: E402
     conv3x3_ablate, exp_pallas_conv as tconv, exp_warp2 as twarp,
-    pq_adc_ablate)
+    pq_adc_ablate, warp_band_ablate)
 
 
 def _similarity(sigma, ang, cx, cy):
@@ -202,6 +202,325 @@ def test_k3_script_paths_run_on_the_cpu(capsys):
     assert "K3 vs exact bilinear" in capsys.readouterr().out
 
 
+# --------------------------------------------------------------------------
+# K3's fused kernel: its window arithmetic (``fused_plan``) and its schedule
+
+
+def _stress_params(rng, nb, h, w, n):
+    """chip_smoke.py's K3 stress draws: scales to 8 source px a crop px,
+    rotations to 0.6 rad and upside down, centers near and past the frame
+    edge; smooth frames, the letterbox canvas and the WarpParams."""
+    small = torch.from_numpy(rng.uniform(0, 255, (nb, 3, max(h // 16, 2),
+                                                  max(w // 16, 2)))
+                             .astype(np.float32))
+    frames = torch.nn.functional.interpolate(
+        small, size=(h, w), mode="bilinear", align_corners=False).round(
+        ).clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+    ms = []
+    for _ in range(n):
+        sigma = rng.uniform(0.4, 8.0)
+        pick = rng.random()
+        ang = (rng.uniform(-0.24, 0.24) if pick < 0.6 else
+               rng.uniform(-0.6, 0.6) if pick < 0.85 else
+               np.pi + rng.uniform(-0.3, 0.3))
+        cx = rng.choice([rng.uniform(-60, 120), rng.uniform(w - 120, w + 60),
+                         rng.uniform(0, w)])
+        cy = rng.choice([rng.uniform(-60, 120), rng.uniform(h - 120, h + 60),
+                         rng.uniform(0, h)])
+        ms.append(_similarity(sigma, ang, cx, cy))
+    fidx = torch.from_numpy(rng.integers(0, nb, n).astype(np.int32))
+    plan = tops.tight_letterbox_plan((h, w), (640, 640))
+    canvas = tops.letterbox(frames, plan).round().clamp(0, 255).to(torch.uint8)
+    prm = twp.prepare_warp_params(
+        torch.from_numpy(np.stack(ms).astype(np.float32)), fidx, (h, w),
+        plan.det_scale, canvas_hw=tuple(canvas.shape[1:3]))
+    return twp.planarize(frames), twp.planarize(canvas), prm
+
+
+def _edge_params(rng):
+    """Hand-made crops at the edges of the window arithmetic on 2 frames of
+    384x512: NaN and infinite sigma / u / v / my / mx, |v| = 1 both ways,
+    windows clipped at 0 and at Q - 72, shears past the envelope, my / mx
+    at +-inf, frame indices outside [0, B), both pyramid levels."""
+    nan, inf = float("nan"), float("inf")
+    rows = [  # b, level, ox, sigma, u, v, my, mx
+        (0, 0, 0, nan, 0.0, 0.0, 190.0, 250.0),
+        (0, 0, 0, 1.0, nan, 0.1, 190.0, 250.0),
+        (1, 0, 0, 1.0, -0.05, nan, 190.0, 250.0),
+        (0, 1, 0, 1.0, 0.0, 0.1, nan, 250.0),
+        (1, 0, 0, 1.0, 0.0, 0.1, 190.0, nan),
+        (0, 0, 0, inf, 0.0, 0.0, 190.0, 250.0),
+        (1, 0, 0, 1.0, -inf, 0.1, 190.0, 250.0),
+        (0, 0, 0, 1.0, 0.0, inf, 190.0, 250.0),
+        (0, 0, 0, 1.0, -1.0, 1.0, 190.0, 250.0),     # |v| = 1
+        (1, 1, 0, 1.3, 1.0, -1.0, 200.0, 260.0),
+        (0, 0, 0, 1.0, -0.5, 0.9, 190.0, 250.0),     # j0_4 clipped at 0
+        (1, 0, 0, 1.0, 0.05, -0.1, 190.0, 250.0),    # clipped at Q - 72
+        (0, 0, 0, 0.7, 6.5, -0.6, 100.0, 150.0),     # upside down
+        (1, 0, 0, 2.0, 0.0, 0.0, inf, 250.0),
+        (0, 1, 0, 1.0, 0.0, 0.0, 190.0, -inf),
+        (-1, 0, 0, 1.0, 0.0, 0.1, 190.0, 250.0),      # b outside [0, B)
+        (2, 1, 0, 1.0, 0.0, 0.1, 190.0, 250.0),
+        (0, 0, 0, 8.0, 0.2, 0.2, 10.0, 20.0),        # windows off the top
+        (1, 0, 0, 1.5, -0.2, -0.24, 370.0, 480.0),   # ... and the bottom
+        (0, 1, 0, 0.25, 0.1, 0.1, 380.0, 500.0),
+    ]
+    ip = torch.tensor([[b, lv, 0, ox, 0, 0, 0, 0] for b, lv, ox, *_ in rows],
+                      dtype=torch.int32)
+    fp = torch.tensor([[*r[3:], 0.0, 0.0, 0.0] for r in rows],
+                      dtype=torch.float32)
+    frames = torch.from_numpy(rng.integers(0, 256, (2, 3, 384, 512),
+                                           dtype=np.uint8))
+    canvas = torch.from_numpy(rng.integers(0, 256, (2, 3, 384, 512),
+                                           dtype=np.uint8))
+    prm = twp.WarpParams(ip, fp, torch.zeros(len(rows), dtype=torch.bool),
+                         torch.arange(len(rows), dtype=torch.int32))
+    return frames, canvas, prm
+
+
+def _k3_set(name):
+    rng = np.random.default_rng(11)
+    if name == "workload":
+        frames, canvas, _, _, prm = twarp.make_workload(
+            rng, 2, 24, fh=540, fw=960, device="cpu")
+        return twp.planarize(frames), twp.planarize(canvas), prm
+    if name == "edges":
+        return _edge_params(rng)
+    h, w = dict(stress_wide=(540, 960), stress_512=(384, 512),
+                stress_400=(300, 400))[name]
+    return _stress_params(rng, 2, h, w, 24)
+
+
+K3_SETS = ("workload", "stress_wide", "stress_512", "stress_400", "edges")
+
+
+def _ranges(plan):
+    return [plan[:, k:k + 1, None] for k in range(6)]
+
+
+def test_k3_pass4_band_start_steps_by_0_8_or_16():
+    """Pass 4 (alpha 1, 8-aligned) moves its window by 0, 8 or 16 rows from
+    one group to the next, whatever v: f32 rounding of base + c can move
+    floor by one either way, and the 8-alignment turns that into a step of
+    0 or 16. So a group takes at most 16 new p3 rows."""
+    rng = np.random.default_rng(2)
+    v = torch.from_numpy(np.concatenate([
+        rng.uniform(-1, 1, 20000), [-1.0, 1.0, 0.0, -0.0, 1e-7, -1e-7],
+        np.linspace(-1, 1, 4001)]).astype(np.float32))
+    bm = torch.minimum(v * 0.0, v * float(twp.Q - 1))
+    base = torch.arange(twp.Q // twarp.G, dtype=torch.float32) * twarp.G
+    j0 = twarp.band_start(torch.ones_like(v)[:, None], bm[:, None],
+                          (-v * twp.CQ)[:, None], base, twp.Q,
+                          twarp.BAND_VY, 8)
+    steps = torch.unique(j0[:, 1:] - j0[:, :-1])
+    assert set(steps.tolist()) <= {0, 8, 16}
+    assert 8 in steps.tolist() and 0 in steps.tolist()
+    assert int(j0.min()) == 0 and int(j0.max()) == twp.Q - twarp.BAND_VY
+
+
+@pytest.mark.parametrize("name", K3_SETS)
+def test_k3_fused_plan_covers_every_tap(name):
+    """Every tap inside its window, zero weight or not, of every position
+    the fused kernel computes lies inside the range the kernel computes
+    the pass before at (``fused_plan``), and so does every position
+    ``needed_masks`` marks; each pass-4 group's rows are in the ring
+    (produced, and not yet overwritten) when the group reads them."""
+    _, _, prm = _k3_set(name)
+    plan = twarp.fused_plan(prm)
+    live = plan[:, 6] == 0
+    assert live.any()
+    if name == "edges":
+        assert int((~live).sum()) == 8
+    sigma, u, v, _, mx = (prm.fparams[:, k] for k in range(5))
+    one, zero = torch.ones_like(sigma), torch.zeros_like(sigma)
+    l4lo, l4hi, l3lo, l3hi, ylo, yhi = _ranges(plan)
+    lanes = torch.arange(twp.Q)
+    i_q = lanes[None, :, None]                        # output row i
+    l_q = lanes[None, None, :]                        # output lane l
+
+    def inside(r, ok, lo, hi, where):
+        ok = ok & where & live[:, None, None]
+        return bool(((r >= lo) & (r < hi) | ~ok).all())
+
+    # pass 5 (i = x_out, l = y kept) taps p4 lanes x
+    kept = torch.arange(twp.LANE_OFF, twp.LANE_OFF + twp.OUT)
+    r, ok = twarp._taps(one, u, (twp.CQ - twp.C0) - u * twp.CQ, twp.OUT,
+                        kept, twp.Q, twp.Q, twarp.BAND_HX, 8, nonzero=False)
+    assert all(inside(r[k], ok[k], l4lo, l4hi, True) for k in range(2))
+    # pass 4 (i = y kept, l = x in L4) taps p3 rows y: the group's rows
+    r, ok = twarp._taps(one, v, -v * twp.CQ, twp.Q, lanes, twp.Q, twp.Q,
+                        twarp.BAND_VY, 8, nonzero=False)
+    g = (i_q // twarp.G - twarp.G4).clamp(0, twarp.NG4 - 1)
+    rd_lo = plan[:, 8:8 + twarp.NG4].gather(1, g[0, :, 0][None].expand(
+        len(plan), -1))[:, :, None]
+    rd_hi = plan[:, 8 + twarp.NG4:].gather(1, g[0, :, 0][None].expand(
+        len(plan), -1))[:, :, None]
+    computed4 = ((i_q >= twp.LANE_OFF) & (i_q < twp.LANE_OFF + twp.OUT)
+                 & (l_q >= l4lo) & (l_q < l4hi))
+    assert all(inside(r[k], ok[k], rd_lo, rd_hi, computed4)
+               for k in range(2))
+    assert all(inside(r[k], ok[k], ylo, yhi, computed4) for k in range(2))
+    # the ring: rows [made - RING, made) are resident when group g reads,
+    # made the production cursor after group g
+    made = torch.maximum(plan[:, 8 + twarp.NG4:].cummax(1).values,
+                         plan[:, 4:5])
+    grp_lo, grp_hi = plan[:, 8:8 + twarp.NG4], plan[:, 8 + twarp.NG4:]
+    nonempty = grp_hi > grp_lo
+    assert bool(((grp_lo >= made - twarp.RING) & (grp_hi <= made)
+                 | ~nonempty).all())
+    assert bool(((grp_lo >= plan[:, 4:5]) | ~nonempty).all())
+    # pass 3 (i = x in L4, l = y in [Ylo, Yhi)) taps p2 rows x
+    r, ok = twarp._taps(one, u, -u * twp.CQ, twp.Q, lanes, twp.Q, twp.Q,
+                        twarp.BAND_HX, 8, nonzero=False)
+    computed3 = (i_q >= l4lo) & (i_q < l4hi) & (l_q >= ylo) & (l_q < yhi)
+    assert all(inside(r[k], ok[k], l3lo, l3hi, computed3) for k in range(2))
+    # pass 2 (i = x in L3, l = y in [Ylo, Yhi)) taps pass-1 lanes t < PW
+    r, ok = twarp._taps(sigma, zero, mx - sigma * twp.CQ, twp.Q, lanes,
+                        twp.Q, twp.PW, twarp.BAND_SCALE, 8, nonzero=False)
+    computed2 = (i_q >= l3lo) & (i_q < l3hi) & (l_q >= ylo) & (l_q < yhi)
+    assert all(inside(r[k], ok[k], 0, twp.PW, computed2) for k in range(2))
+    # what the crops need lies inside what the kernel computes
+    n4, n3, n2, n1 = twarp.needed_masks(prm)
+    lv = live[:, None, None]
+    assert not (n4 & lv & ~computed4).any()
+    yx3 = (l_q >= l4lo) & (l_q < l4hi) & (i_q >= ylo) & (i_q < yhi)
+    assert not (n3.transpose(1, 2) & lv & ~yx3).any()   # p3 as (y, x)
+    assert not (n2 & lv & ~computed2).any()
+    rows1 = (torch.arange(twp.Q)[None, :, None] >= ylo) & (
+        torch.arange(twp.Q)[None, :, None] < yhi)
+    assert not (n1 & lv & ~rows1).any()
+
+
+def _kernel_mix(pos, j0, band, src_rows, read):
+    """The kernel's band-mix output: its two taps inside the window, summed
+    in tap order; ``read(rows)`` gives (3, ...) values; NaN positions
+    NaN."""
+    t0 = torch.floor(pos)
+    acc = torch.zeros((3,) + pos.shape)
+    for k in (0.0, 1.0):
+        rt = t0 + k
+        ok = (rt >= j0) & (rt < j0 + band) & (rt < src_rows)
+        w = torch.clamp_min(1.0 - torch.abs(pos - rt), 0.0)
+        val = read(torch.where(ok, rt, 0.0).to(torch.int64))
+        acc = acc + torch.where(ok, val * w, 0.0)
+    return torch.where(pos.isnan(), float("nan"), acc)
+
+
+def _emulate_fused(frames_planar, canvas_planar, prm):
+    """The fused kernel's schedule on the CPU: the ranges of ``fused_plan``,
+    p3 rows produced in batches of 16 into a ring of RING slots, each pass
+    reading only its buffer. Buffers start as NaN, so a read of a slot not
+    written (or overwritten) shows in the crops."""
+    Q, G, CQ = twp.Q, twarp.G, twp.CQ
+    plan = twarp.fused_plan(prm)
+    f = len(plan)
+    out = torch.full((f, twp.OUT, twp.OUT, 3), float("nan"))
+    for n in range(f):
+        if plan[n, 6]:
+            continue
+        b, level, _, ox = (int(t) for t in prm.iparams[n, :4])
+        sigma, u, v, my, mx = prm.fparams[n, :5]
+        src = frames_planar if level == 0 else canvas_planar
+        nb, _, rows, w = src.shape
+        l4lo, l4hi, l3lo, l3hi, ylo, yhi = (int(t) for t in plan[n, :6])
+        rd_hi = plan[n, 8 + twarp.NG4:].tolist()
+        one, zero = torch.ones(()), torch.zeros(())
+
+        def j0(alpha, beta, gamma, i, src_rows, band, align):
+            bm = torch.minimum(beta * 0.0, beta * float(Q - 1))
+            base = torch.div(i, G, rounding_mode="floor").float() * G
+            return twarp.band_start(alpha, bm, gamma, base, src_rows, band,
+                                    align).float()
+
+        def pos(alpha, beta, gamma, i, l):
+            return (alpha * i.float() + beta * l.float()) + gamma
+
+        g1, g2 = my - sigma * CQ, mx - sigma * CQ
+        g3, g4, g5 = -u * CQ, -v * CQ, (CQ - twp.C0) - u * CQ
+        ring = torch.full((3, twarp.RING, Q), float("nan"))
+        made = ylo
+        for g in range(twarp.NG4):
+            while made < rd_hi[g]:
+                y = torch.arange(made, min(made + 16, rd_hi[g]))[:, None]
+                x = torch.arange(l3lo, l3hi)[None, :]
+                p1 = pos(sigma, zero, g1, y, torch.zeros_like(y))
+                j1 = j0(sigma, zero, g1, y, rows, twarp.BAND_SRC, 16)
+
+                def a1(t):
+                    col = ox + t
+                    ok = (0 <= b < nb) & (col >= 0) & (col < w)
+                    bc = min(max(b, 0), nb - 1)
+                    p = p1.expand_as(t)
+
+                    def read(r):
+                        v8 = src[bc, :, r.clamp(0, rows - 1),
+                                 col.clamp(0, w - 1)]
+                        return torch.where(ok, v8.float(), 0.0)
+                    return _kernel_mix(p, j1.expand_as(t), twarp.BAND_SRC,
+                                       rows, read)
+
+                p2b = torch.full((3, len(y), Q), float("nan"))
+                p2b[:, :, l3lo:l3hi] = _kernel_mix(
+                    pos(sigma, zero, g2, x, y).expand(len(y), -1),
+                    j0(sigma, zero, g2, x, twp.PW, twarp.BAND_SCALE,
+                       8).expand(len(y), -1), twarp.BAND_SCALE, twp.PW, a1)
+                x4 = torch.arange(l4lo, l4hi)[None, :]
+                rr = torch.arange(len(y))[:, None]
+                ring[:, y[:, 0] % twarp.RING, l4lo:l4hi] = _kernel_mix(
+                    pos(one, u, g3, x4, y),
+                    j0(one, u, g3, x4, Q, twarp.BAND_HX, 8).expand(
+                        len(y), -1), twarp.BAND_HX, Q,
+                    lambda t: p2b[:, rr.expand_as(t), t])
+                made = int(y[-1]) + 1
+            gy = torch.arange((twarp.G4 + g) * G, (twarp.G4 + g + 1) * G
+                              )[:, None]
+            x4 = torch.arange(l4lo, l4hi)[None, :]
+            p4b = torch.full((3, G, Q), float("nan"))
+            p4b[:, :, l4lo:l4hi] = _kernel_mix(
+                pos(one, v, g4, gy, x4),
+                j0(one, v, g4, gy, Q, twarp.BAND_VY, 8).expand(-1, len(x4[0])),
+                twarp.BAND_VY, Q,
+                lambda t: ring[:, t % twarp.RING, x4.expand_as(t)])
+            xo = torch.arange(twp.OUT)[None, :]
+            rr = torch.arange(G)[:, None]
+            p5 = _kernel_mix(pos(one, u, g5, xo, gy),
+                             j0(one, u, g5, xo, Q, twarp.BAND_HX, 8).expand(
+                                 G, -1), twarp.BAND_HX, Q,
+                             lambda t: p4b[:, rr.expand_as(t), t])
+            out[n, gy[:, 0] - twp.LANE_OFF] = p5.permute(1, 2, 0)
+    return out
+
+
+@pytest.mark.parametrize("name", K3_SETS)
+def test_k3_fused_schedule_equals_the_plain_version(name):
+    """The fused kernel's schedule, emulated on the CPU with its ranges,
+    ring and tap rule, gives the plain version's crops bit for bit, NaN
+    positions included."""
+    fp, cp, prm = _k3_set(name)
+    want = twarp.warp_crops_band_plain(fp, cp, prm)
+    got = _emulate_fused(fp, cp, prm)
+    assert torch.equal(got.isnan(), want.isnan())
+    fin = ~want.isnan()
+    assert torch.equal(got[fin], want[fin])
+    assert fin.any()
+
+
+def test_k3_nonfinite_params_make_the_whole_crop_nan():
+    """The fused kernel writes a crop all NaN when its sigma, u or v is not
+    finite or its my or mx is NaN, because the plain version does: some
+    pass's positions are NaN everywhere, and each later window carries
+    the NaN on. An infinite my or mx only moves every tap out of the
+    window: zeros."""
+    fp, cp, prm = _edge_params(np.random.default_rng(4))
+    want = twarp.warp_crops_band_plain(fp, cp, prm)
+    dead = twarp.fused_plan(prm)[:, 6] == 1
+    assert int(dead.sum()) == 8
+    assert want[dead].isnan().all()
+    assert not want[~dead].isnan().any()
+    inf_m = torch.isinf(prm.fparams[:, 3]) | torch.isinf(prm.fparams[:, 4])
+    assert inf_m.any() and (want[inf_m] == 0).all()
+
+
 def _conv_inputs(seed, b=2, c=8, h=16, wp=32, f=16):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(b, c, h, wp)).astype(np.float32)
@@ -368,6 +687,22 @@ def test_k4_ablation_variants_edit_the_kernel_source():
     assert "s_ == 1234.5f" in conv3x3_ablate.variant_source("mma_only")
     with pytest.raises(RuntimeError, match="on the card"):
         conv3x3_ablate.run(device="cpu")
+
+
+def test_k3_ablation_variants_edit_the_kernel_source():
+    """Each variant of ``tools/warp_band_ablate.py`` applies to the
+    current source (every edit found exactly once); timing them needs the
+    card."""
+    full = warp_band_ablate.variant_source("full")
+    assert "cp.async.cg.shared.global" in full
+    for name in warp_band_ablate.VARIANTS:
+        src = warp_band_ablate.variant_source(name)
+        assert (src == full) == (name == "full"), name
+    assert "stage(made)" not in warp_band_ablate.variant_source("no_src")
+    assert full.count("__syncthreads()") - warp_band_ablate.variant_source(
+        "no_sync").count("__syncthreads()") == 5
+    with pytest.raises(RuntimeError, match="on the card"):
+        warp_band_ablate.run(device="cpu")
 
 
 def test_k2_ablation_variants_edit_the_kernel_source():
