@@ -12,15 +12,23 @@ non-zero exit if it fails:
 3. kernel K1 (the face-crop warp, ``warp_align``) against its plain PyTorch
    version on the card: 16 synthetic 1080p frames and 320 crops covering
    rotations to 180 deg, scales 0.2-4, partly and wholly off-frame crops,
-   degenerate and NaN matrices, plus frames narrower than 512 px; max abs
-   error in u8 units and kernel / plain / affine_grid + grid_sample / bound
-   times;
+   degenerate and NaN matrices, plus frames narrower than 512 px, and the
+   edge sets of ``K1_EDGES`` (no crop, one crop, an output width off the
+   4-pixel quads, a height off the kernel's tile rows, a width of three
+   112-column tiles, frame indices outside [0, B), frames smaller than a
+   crop's footprint); max abs error in u8
+   units (tolerance 1e-3, expected 0) and equal NaN positions; the
+   kernel's occupancy (threads and rows a CTA, CTAs an SM); kernel /
+   plain / affine_grid + grid_sample / bound times at 320 crops, and the
+   kernel and its bound at 960 crops over 96 x 1080p frames (bench.py's
+   batch);
 4. the main path at full width: FacePipeline with det_10g + w600k_r50
    (seeded weights) on the card, a gallery of 128, 8 synthetic 1080p
    frames, three calls with max_num=10 and process_stream over two
    batches, with the kernel's launch count reset just before and read just
    after, per-stage CUDA-event times and the kernel's times at the shapes
-   this path gave it;
+   this path gave it, beside ``crop_matrices`` (the rest of the align +
+   warp stage) at the same shapes;
 5. the port on the card against the port on the CPU (small seeded config,
    TF32 off for convolutions and matmuls);
 6. kernel K2 (the PQ distance scorer, ``pq_adc``) against its plain
@@ -76,8 +84,9 @@ non-zero exit if it fails:
    8 x 1080p frames, gallery 128), K1's launch count reset just before and
    read just after; faces per call, said as meeting or not meeting the
    expectation (more than 0, fewer than every slot; 0 fails), ms per
-   call, stage times; the path's
-   crop matrices through WarpParams and K3 against its plain version;
+   call, stage times; K1 against its plain version on the path's crops;
+   the path's crop matrices through WarpParams and K3 against its plain
+   version;
 12. one JSON line of every kernel's numbers.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
@@ -98,6 +107,17 @@ DEV = "cuda"
 # phase sizes: (frames, height, width, crops) for phase 3; the main path's
 # models, frame batch and frame size for phase 4
 K1_CASE = (16, 1080, 1920, 320)
+# phase 3: K1 at bench.py's batch (frames, height, width, crops), and its
+# edge sets: (name, frames, height, width, crops, out_hw, frame index
+# offset); the offset moves every other crop's frame index outside [0, B)
+K1_BENCH = (96, 1080, 1920, 960)
+K1_EDGES = (("no crop", 2, 64, 96, 0, (112, 112), 0),
+            ("one crop", 2, 64, 96, 1, (112, 112), 0),
+            ("odd out_hw", 3, 90, 150, 24, (112, 110), 0),
+            ("odd band and quad", 3, 90, 150, 24, (13, 7), 0),
+            ("three tile columns", 3, 90, 150, 12, (9, 230), 0),
+            ("frame index outside", 3, 90, 150, 24, (112, 112), 5),
+            ("frames smaller than a footprint", 4, 12, 20, 24, (112, 112), 0))
 MAIN = dict(det="det_10g", rec="w600k_r50", frames=8, hw=(1080, 1920),
             max_num=10, gallery=128)
 HBM_BYTES_PER_S = 3.35e12
@@ -285,11 +305,11 @@ def grid_sample_yardstick(torch, frames, minv, frame_idx):
     return call, out.reshape(b * per, 112, 112, 3)[rows]
 
 
-def compare_k1(torch, wa, frames, minv, frame_idx):
+def compare_k1(torch, wa, frames, minv, frame_idx, out_hw=(112, 112)):
     """Kernel vs plain on the same card tensors: same NaN positions, and
     the max abs difference of the rest in u8 units."""
-    got = wa.warp_align_crops(frames, minv, frame_idx)
-    want = wa.warp_align_plain(frames, minv, frame_idx)
+    got = wa.warp_align_crops(frames, minv, frame_idx, out_hw)
+    want = wa.warp_align_plain(frames, minv, frame_idx, out_hw)
     torch.cuda.synchronize()
     if not torch.equal(torch.isnan(got), torch.isnan(want)):
         fail("warp_align: NaN pattern differs from the plain version")
@@ -298,6 +318,27 @@ def compare_k1(torch, wa, frames, minv, frame_idx):
     if not err <= TOL_U8:
         fail(f"warp_align: max abs err {err} u8 > {TOL_U8}")
     return err, got
+
+
+def k1_edges(torch, wa, rng):
+    """K1 against its plain version on each set of ``K1_EDGES``; returns
+    the largest error and a line for the report."""
+    errs = []
+    for name, nb, h, w, nc, out_hw, off in K1_EDGES:
+        frames = synthetic_frames(torch, rng, nb, h, w)
+        # warp_matrices' first three are degenerate: drawn only with room
+        ms = (warp_matrices(rng, nc, h, w) if nc >= 3 else
+              warp_matrices(rng, nc + 3, h, w)[3:])
+        fidx = rng.integers(0, nb, nc).astype(np.int32)
+        if off:     # every other crop's index below 0 or past B, in turn
+            bad = fidx[::2]
+            bad[0::2], bad[1::2] = -off, nb - 1 + off
+        err, got = compare_k1(torch, wa, frames, wa_inputs(torch, ms),
+                              torch.from_numpy(fidx).to(DEV), out_hw)
+        if got.shape != (nc, 3, *out_hw):
+            fail(f"K1 edge set {name}: shape {tuple(got.shape)}")
+        errs.append((name, err))
+    return max(e for _, e in errs), "; ".join(f"{n} {e:.6g}" for n, e in errs)
 
 
 def k1_times(torch, wa, frames, minv, frame_idx):
@@ -359,6 +400,13 @@ def phase_kernel_vs_plain(torch, wa, rep):
     err_n, _ = compare_k1(torch, wa, frames_n, wa_inputs(torch, ms_n), fidx_n)
     rep.say(f"K1 vs plain, 4x(300x400) frames, 40 crops: max_abs_err "
             f"{err_n:.6g} u8")
+    err_e, said = k1_edges(torch, wa, rng)
+    rep.say(f"K1 vs plain on its edge sets, max_abs_err u8: {said}")
+    occ = wa.occupancy()
+    rep.say(f"K1 launch: {occ['threads']} threads a CTA, {occ['rows']} output "
+            f"rows a CTA ({-(-112 // occ['rows'])} CTAs a 112-row crop), "
+            f"{occ['blocks_per_sm']} CTAs an SM (occupancy API), "
+            f"{occ['regs']} registers a thread")
     t = k1_times(torch, wa, frames, minv, fidx_t)
     _, lib_crops = grid_sample_yardstick(torch, frames, minv, fidx_t)
     plain = wa.warp_align_plain(frames, minv, fidx_t)
@@ -371,7 +419,19 @@ def phase_kernel_vs_plain(torch, wa, rep):
             f"{lib_err:.4g} u8), "
             f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
             f"({t['bytes']} B at 3.35 TB/s)")
-    return max(err, err_n)
+    # bench.py's batch: 96 frames, up to 960 crops
+    nb, h, w, nc = K1_BENCH
+    frames = synthetic_frames(torch, rng, nb, h, w)
+    minv = wa_inputs(torch, warp_matrices(rng, nc, h, w))
+    fidx_t = torch.from_numpy(
+        rng.permutation(np.arange(nc) % nb).astype(np.int32)).to(DEV)
+    err_b, _ = compare_k1(torch, wa, frames, minv, fidx_t)
+    ms_b = time_ms(torch, lambda: wa.warp_align_crops(frames, minv, fidx_t))
+    bound, by, nbytes = warp_bound(torch, frames, minv, fidx_t)
+    rep.say(f"K1 at {nb}x{h}x{w} / {nc} crops: kernel {ms_b:.4f} ms, bound "
+            f"{bound:.4f} ms by {by} ({nbytes} B at 3.35 TB/s), "
+            f"max_abs_err {err_b:.6g} u8")
+    return max(err, err_n, err_e, err_b)
 
 
 def wa_inputs(torch, ms):
@@ -454,14 +514,18 @@ def phase_main_path(torch, rep):
     b, k = o.valid.shape
     bucket = pipe._round_bucket(faces, b * k)
     sel, fidx = bucket_slots(o.valid, bucket)
-    minv = crop_matrices(o.kps.reshape(b * k, 5, 2)[sel])
+    kps = o.kps.reshape(b * k, 5, 2)[sel]
+    minv = crop_matrices(kps)
     err, _ = compare_k1(torch, wa, frames, minv, fidx)
     t = k1_times(torch, wa, frames, minv, fidx)
+    cm_ms = time_ms(torch, lambda: crop_matrices(kps))
     rep.say(f"K1 at the main path's shapes ({nb}x{h}x{w}, {bucket} crops): "
             f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"affine_grid + grid_sample {t['library_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} "
-            f"ms by {t['bound_by']} ({t['bytes']} B), max_abs_err {err:.6g} u8")
+            f"ms by {t['bound_by']} ({t['bytes']} B), max_abs_err {err:.6g} u8; "
+            f"crop_matrices (umeyama + inverse) on the same {bucket} faces "
+            f"{cm_ms:.4f} ms")
     return launches, err, t, o.embeddings[o.valid].cpu().numpy()
 
 
@@ -1287,6 +1351,8 @@ def phase_standin_path(torch, rep):
     from scrfd_arcface_facerecognition_tpu_torch.ops import warp_params as wp
     from scrfd_arcface_facerecognition_tpu_torch.pipeline import (
         Detector, Embedder)
+    from scrfd_arcface_facerecognition_tpu_torch.pipeline.embedder import (
+        crop_matrices)
     from scrfd_arcface_facerecognition_tpu_torch.pipeline.face_pipeline import (
         bucket_slots)
     from scrfd_arcface_facerecognition_tpu_torch.tools import exp_warp2
@@ -1360,6 +1426,8 @@ def phase_standin_path(torch, rep):
     b, k = o.valid.shape
     sel, fidx = bucket_slots(o.valid, faces)
     kps = o.kps.reshape(b * k, 5, 2)[sel]
+    err1, _ = compare_k1(torch, wa, frames, crop_matrices(kps), fidx)
+    rep.say(f"stand-in path's {faces} crops: K1 vs plain {err1:.6g} u8")
 
     # the path's crops through WarpParams and K3
 
@@ -1378,7 +1446,7 @@ def phase_standin_path(torch, rep):
             f"{float(sig.min()):.3f}-{float(sig.max()):.3f}, |sin phi| max "
             f"{float(prm.fparams[:, 2].abs().max()):.3f}); K3 vs plain on "
             f"them {err:.6g} u8")
-    return dict(err=err, faces=faces, launches=launches)
+    return dict(err=err, err1=err1, faces=faces, launches=launches)
 
 def main():
     import torch
@@ -1446,7 +1514,7 @@ def main():
         "name": wa.NAME, "route": "cuda",
         "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/warp_align.cu",
         "replaces": "scrfd_arcface_facerecognition_tpu/ops/pallas_warp.py:430",
-        "launches": launches, "max_abs_err": max(err3, err4),
+        "launches": launches, "max_abs_err": max(err3, err4, sp["err1"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     }, {

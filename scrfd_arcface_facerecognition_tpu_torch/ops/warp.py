@@ -39,12 +39,15 @@ def warp_affine_inv_flat(frames: torch.Tensor, minv: torch.Tensor,
     """F crops out of a frame batch, given dst -> src matrices.
 
     frames (B, H, W, C) uint8 or float; minv (F, 2, 3) dst -> src;
-    frame_idx (F,) in [0, B). Returns (F, h, w, C) float32.
+    frame_idx (F,). Returns (F, h, w, C) float32.
 
     Each tap's inside mask is decided on the float coordinate before any
     cast, so NaN or huge coordinates never reach an integer conversion:
     an outside tap contributes value * (weight * 0), which is 0 for a
-    finite weight and NaN for a NaN weight, as in the reference.
+    finite weight and NaN for a NaN weight, as in the reference. A crop
+    whose frame_idx lies outside [0, B) has every tap outside (it samples
+    the zero border), as the kernel of ``ops/warp_align.py`` does; the
+    reference's gather instead wraps a negative index and fills NaN past B.
     """
     b, h, w, c = frames.shape
     oh, ow = out_hw
@@ -63,10 +66,14 @@ def warp_affine_inv_flat(frames: torch.Tensor, minv: torch.Tensor,
     fx = sx - x0
     fy = sy - y0
     flat = frames.reshape(b * h * w, c).to(torch.float32)
-    base = (frame_idx.to(torch.int64) * h)[:, None, None]
+    fi = frame_idx.to(torch.int64)
+    ok = (fi >= 0) & (fi < b)
+    base = (torch.where(ok, fi, 0) * h)[:, None, None]
+    frame_ok = ok[:, None, None]
 
     def tap(yt, xt, wgt):
-        inside = (xt >= 0) & (xt <= w - 1) & (yt >= 0) & (yt <= h - 1)
+        inside = frame_ok & (xt >= 0) & (xt <= w - 1) & (yt >= 0) & (
+            yt <= h - 1)
         zero = torch.zeros_like(xt)
         xi = torch.where(inside, xt, zero).to(torch.int64)
         yi = torch.where(inside, yt, zero).to(torch.int64)

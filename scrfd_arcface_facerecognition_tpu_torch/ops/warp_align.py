@@ -4,7 +4,10 @@ Counterpart of the JAX package's Pallas kernel ``warp_crops_pallas``
 (``ops/pallas_warp.py``). The CUDA kernel (``csrc/warp_align.cu``) computes
 the exact bilinear warp of every crop in one pass and fuses what follows it
 on the way into the embedder: BGR -> RGB, (x - 127.5) / 127.5 and the NCHW
-layout. Its source note gives its bound on an H100 and its design.
+layout. Its source note gives its bound on an H100 and its design: a
+CTA per tile of a few output rows, four pixels a thread with all their
+loads issued before any is used, and 16-byte stores through a
+shared-memory tile.
 
 ``warp_align_crops`` launches the kernel for CUDA tensors and runs the plain
 PyTorch version (``warp_align_plain``) for CPU tensors, and only for them;
@@ -14,7 +17,7 @@ kernel's launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -39,20 +42,46 @@ def warp_align_plain(frames: torch.Tensor, minv: torch.Tensor,
     return crops.permute(0, 3, 1, 2).contiguous()
 
 
+def launch_function(lib: ctypes.CDLL):
+    """``warp_align_launch`` of a library built from ``csrc/warp_align.cu``,
+    typed for ctypes."""
+    fn = lib.warp_align_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _bind():
     """The C launch function, built and loaded at first use."""
     global _launch_fn
     if _launch_fn is None:
         from ..cuda_build import library
 
-        fn = library(NAME).warp_align_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _launch_fn = fn
+        _launch_fn = launch_function(library(NAME))
     return _launch_fn
+
+
+def occupancy(lib: Optional[ctypes.CDLL] = None) -> Dict[str, int]:
+    """The kernel's launch on the current card (``lib``, or the kernel's
+    own library): threads and output rows a CTA, resident CTAs an SM (the
+    CUDA occupancy API) and registers a thread."""
+    if lib is None:
+        from ..cuda_build import library
+
+        lib = library(NAME)
+    fn = lib.warp_align_occupancy
+    fn.argtypes = [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    rc = fn(*(ctypes.byref(x) for x in vals))
+    if rc != 0:
+        raise RuntimeError(f"warp_align occupancy query failed: CUDA error "
+                           f"{rc}")
+    return dict(zip(("threads", "rows", "blocks_per_sm", "regs"),
+                    (x.value for x in vals)))
 
 
 def warp_align_crops(frames: torch.Tensor, minv: torch.Tensor,

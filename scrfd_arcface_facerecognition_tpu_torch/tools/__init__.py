@@ -12,7 +12,9 @@ the card: ``python -m scrfd_arcface_facerecognition_tpu_torch.tools.<name>``).
   where its time goes (no JAX counterpart);
 - ``pq_adc_ablate``: the same for K2, the PQ distance scorer
   (``csrc/pq_adc.cu``; no JAX counterpart);
-- ``warp_band_ablate``: the same for K3 (no JAX counterpart).
+- ``warp_band_ablate``: the same for K3 (no JAX counterpart);
+- ``warp_align_ablate``: the same for K1, the face-crop warp
+  (``csrc/warp_align.cu``; no JAX counterpart).
 """
 import time
 

@@ -98,6 +98,104 @@ def test_k4_cases_cover_the_kernels_paths(monkeypatch):
     assert bool(torch.isnan(want).any()) and bool(torch.isinf(want).any())
 
 
+def _no_card(monkeypatch, wa):
+    """chip_smoke on the CPU: the wrappers take their plain versions,
+    times read 0 and the occupancy query answers without a library."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda torch, fn, **kw: (fn(), 0.0)[1])
+    monkeypatch.setattr(wa, "occupancy", lambda lib=None: dict(
+        threads=224, rows=8, blocks_per_sm=0, regs=0))
+    said = []
+    rep = chip_smoke.Report("CPU")
+    monkeypatch.setattr(rep, "say", said.append)
+    return rep, said
+
+
+def test_k1_edge_sets_reach_the_kernels_edges():
+    """Phase 3's edge sets: no crop and one crop, an output width off the
+    4-pixel quads, a height off the tiles' rows (2, 4 or 8), a width of
+    three 112-column tiles, frame indices below 0 and at or past B,
+    frames smaller than a crop's footprint."""
+    edges = chip_smoke.K1_EDGES
+    assert {nc for _, _, _, _, nc, _, _ in edges} >= {0, 1}
+    assert any(hw[1] % 4 for *_, hw, _ in edges)
+    assert any(hw[0] % 2 for *_, hw, _ in edges)
+    assert any(hw[1] > 224 for *_, hw, _ in edges)
+    assert any(off > 0 for *_, off in edges)
+    assert any(h < 56 and w < 56 for _, _, h, w, *_ in edges)
+    assert chip_smoke.K1_BENCH == (96, 1080, 1920, 960)
+
+
+def test_k1_phase_rehearsed_on_the_cpu(monkeypatch):
+    """Phase 3 at small sizes through the wrapper's plain version: every
+    set compared (0 u8 against itself), out-of-range frame indices among
+    them, no launch counted, each edge set and the bench-size timing
+    reported."""
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    rep, said = _no_card(monkeypatch, wa)
+    monkeypatch.setattr(chip_smoke, "K1_CASE", (2, 64, 96, 12))
+    monkeypatch.setattr(chip_smoke, "K1_BENCH", (3, 48, 64, 9))
+    seen = []
+    plain = wa.warp_align_plain
+
+    def watched(frames, minv, frame_idx, out_hw=(112, 112)):
+        seen.append((frames.shape[0], frame_idx.clone(), out_hw))
+        return plain(frames, minv, frame_idx, out_hw)
+
+    monkeypatch.setattr(wa, "warp_align_plain", watched)
+    before = wa.launches
+    assert chip_smoke.phase_kernel_vs_plain(torch, wa, rep) == 0.0
+    assert wa.launches == before
+    edges = [s for s in said if s.startswith("K1 vs plain on its edge sets")]
+    assert len(edges) == 1
+    for name, *_ in chip_smoke.K1_EDGES:
+        assert f"{name} 0;" in edges[0] + ";", name
+    assert any(((fi < 0) | (fi >= nb)).any() for nb, fi, _ in seen)
+    assert {hw for *_, hw in seen} >= {(112, 110), (13, 7), (9, 230)}
+    assert any(s.startswith("K1 at 3x48x64 / 9 crops") for s in said)
+    assert any("CTAs an SM (occupancy API)" in s for s in said)
+
+
+def test_main_path_phase_rehearsed_on_the_cpu(monkeypatch):
+    """Phase 4 at a small size (det_500m + w600k_mbf, 2 frames): the launch
+    count read from the path, K1 at the path's shapes beside
+    crop_matrices."""
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    rep, said = _no_card(monkeypatch, wa)
+
+    class Event:
+        def __init__(self, **kw):
+            pass
+
+        def record(self):
+            pass
+
+        def elapsed_time(self, other):
+            return 0.0
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(chip_smoke, "MAIN", dict(
+        det="det_500m", rec="w600k_mbf", frames=2, hw=(96, 128), max_num=2,
+        gallery=4))
+    crops = ops.warp_align_crops
+
+    def counted(*args, **kw):
+        wa.launches += 1
+        return crops(*args, **kw)
+
+    monkeypatch.setattr(ops, "warp_align_crops", counted)
+    launches, err, t, emb = chip_smoke.phase_main_path(torch, rep)
+    assert launches == 5 and err == 0.0
+    assert emb.shape[1] == 512 and t["bound_by"] == "bytes"
+    line = [s for s in said if s.startswith("K1 at the main path's shapes")]
+    assert len(line) == 1 and "crop_matrices (umeyama + inverse)" in line[0]
+
+
 def test_standin_expectation_is_said_and_zero_faces_fail():
     assert "NOT MET" in chip_smoke.standin_expectation(80, 80)
     assert "expectation met" in chip_smoke.standin_expectation(37, 80)

@@ -30,7 +30,7 @@ from scrfd_arcface_facerecognition_tpu_torch.ops import warp_params as twp  # no
 from scrfd_arcface_facerecognition_tpu_torch import cuda_build  # noqa: E402
 from scrfd_arcface_facerecognition_tpu_torch.tools import (  # noqa: E402
     conv3x3_ablate, exp_pallas_conv as tconv, exp_warp2 as twarp,
-    pq_adc_ablate, warp_band_ablate)
+    pq_adc_ablate, warp_align_ablate, warp_band_ablate)
 
 
 def _similarity(sigma, ang, cx, cy):
@@ -703,6 +703,51 @@ def test_k3_ablation_variants_edit_the_kernel_source():
         "no_sync").count("__syncthreads()") == 5
     with pytest.raises(RuntimeError, match="on the card"):
         warp_band_ablate.run(device="cpu")
+
+
+def test_k1_ablation_variants_edit_the_kernel_source():
+    """Each variant of ``tools/warp_align_ablate.py`` applies to the
+    current ``csrc/warp_align.cu`` (every edit found exactly once), the
+    docstring names every variant and those that still compute the crops;
+    timing them needs the card."""
+    full = warp_align_ablate.variant_source("full")
+    assert "reinterpret_cast<float4*>" in full and "__ldg" in full
+    for name in warp_align_ablate.VARIANTS:
+        src = warp_align_ablate.variant_source(name)
+        assert (src == full) == (name == "full"), name
+        assert f"- ``{name}``:" in warp_align_ablate.__doc__, name
+    assert set(warp_align_ablate.EXACT) < set(warp_align_ablate.VARIANTS)
+    assert "__ldg" not in warp_align_ablate.variant_source("no_load")
+    assert "reinterpret_cast<float4*>" not in warp_align_ablate.variant_source(
+        "scalar_stores")
+    assert "tile[c][r][tile_col(q, k)] = res" not in (
+        warp_align_ablate.variant_source("direct_stores"))
+    assert "const dim3 grid(1, " in warp_align_ablate.variant_source(
+        "one_cta_per_crop")
+    assert warp_align_ablate.variant_source("no_store").count(
+        "1234.5f") == 2
+    with pytest.raises(RuntimeError, match="on the card"):
+        warp_align_ablate.run(device="cpu")
+
+
+def test_k1_ablation_workload_is_face_like():
+    """The ablation's crops: scales 0.5-2, rotations within max_deg,
+    centers inside the frame, crop i from frame i % nb; the plain version
+    gives finite crops on them."""
+    frames, minv, fidx = warp_align_ablate.workload(
+        np.random.default_rng(0), 2, 10, h=120, w=200)
+    assert frames.shape == (2, 120, 200, 3) and frames.dtype == torch.uint8
+    assert fidx.tolist() == [i % 2 for i in range(10)]
+    lin = minv[:, :, :2].double()
+    sigma = lin.det().sqrt()
+    assert bool(((sigma > 0.5 - 1e-5) & (sigma < 2 + 1e-5)).all())
+    ang = torch.atan2(lin[:, 1, 0], lin[:, 0, 0]).abs()
+    assert bool((ang <= np.pi / 6 + 1e-5).all())
+    center = (minv @ torch.tensor([55.5, 55.5, 1.0])).double()
+    assert bool(((center[:, 0] > 20) & (center[:, 0] < 180)
+                 & (center[:, 1] > 12) & (center[:, 1] < 108)).all())
+    crops = tops.warp_align_plain(frames, minv, fidx)
+    assert bool(torch.isfinite(crops).all())
 
 
 def test_k2_ablation_variants_edit_the_kernel_source():
