@@ -87,7 +87,35 @@ non-zero exit if it fails:
    call, stage times; K1 against its plain version on the path's crops;
    the path's crop matrices through WarpParams and K3 against its plain
    version;
-12. one JSON line of every kernel's numbers.
+12. the facade and the engines (``FACADE``): (a) ``FaceAnalysis`` with
+   det_10g + w600k_r50 (seeded) on the card, ``get_batch`` on 8 x 1080p
+   images (the static route), 8 more at 720 x 1280 (two static chunks of
+   different shapes through ``process_stream``) and 8 one-off web shapes
+   (the dynamic 256-px buckets), K1's launches counted around the call,
+   faces per image, each group's route and ms per route; each one-off
+   image's dynamic canvas within 1e-4 of the exact-shape ``letterbox``;
+   K1 against its plain version on the inputs this call gave it (the
+   first call for each frame-batch shape: both static chunks and every
+   dynamic bucket);
+   (b) ``enable_microbatch()`` and 16 threads each calling ``get()`` on one
+   image, the results equal to the direct ``get_batch`` of the batches the
+   collector formed (bbox atol 1e-2, embeddings atol 1e-3); (c)
+   ``SmartFaceEngine`` on that facade with an injected image loader (no
+   network, no cv2) over ``FACADE["visits"]`` visits: the result counts,
+   the "no face" count split by the gate that gave it, ms per visit, the
+   results file's size, K1 against its plain version on the run's
+   inputs; then on the PQ tier with an identity-coded app
+   (``IdentityApp``) over ``ENGINE_PQ``'s visits in batches, K2's
+   launches counted (the gallery crosses to PQ mid-run), K2 against its
+   plain version on the LUT and codes of every search the tier ran, the
+   decisions (the SQLite rows and the clustering_results JSON, without
+   timestamps) equal to the same run on the CPU; (d)
+   ``FaceComparison.process_face_comparisons`` on ``FACADE["pairs"]``
+   (image, refImage) pairs with the facade: the accuracy block well formed,
+   ms per pair. Any ERROR record that the port logs during (c) or (d)
+   fails the phase: the engine counts a visit whose decision raised as
+   "no face", so the log is where such a fault shows;
+13. one JSON line of every kernel's numbers.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside it, the script exits non-zero and prints no
@@ -95,6 +123,7 @@ result.
 """
 import contextlib
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -150,6 +179,20 @@ K2_EDGES = ((64, 256, 4097, 3), (64, 256, 2_000_000, 5), (128, 256, 4097, 0),
             (128, 256, 4097, 1), (64, 99, 4097, 0), (160, 99, 4097, 1))
 GAL = dict(rows=1_000_000, idents=100_000, sigma=0.05, k=5)
 GAL_CPU_ROWS = 20_000
+# phase 12: the facade's groups (static: n x h x w; stream: a second static
+# shape; one-off web shapes (h, w) for the dynamic buckets), the
+# micro-batched images (16 distinct shapes), the clustering run's visits
+# and image size, the verification pairs; then the PQ-tier engine run
+# (visits over identities, in batches, the tier's training rows)
+FACADE = dict(det="det_10g", rec="w600k_r50", det_size=(640, 640), max_det=16,
+              static=(8, 1080, 1920), stream=(8, 720, 1280),
+              oneoff=((300, 400), (480, 640), (1280, 720), (97, 131),
+                      (1000, 1000), (600, 800), (250, 180), (768, 1024)),
+              microbatch=[(200 + 24 * i, 260 + 16 * i) for i in range(16)],
+              visits=200, visit_hw=(480, 640), pairs=50)
+ENGINE_PQ = dict(visits=300, idents=120, batches=3, min_train_rows=64)
+TOL_CANVAS = 1e-4       # dynamic canvas vs exact-shape letterbox
+TOL_RECORD = 1e-5       # engine floats (similarities), card vs CPU
 
 
 def fail(msg):
@@ -1448,6 +1491,624 @@ def phase_standin_path(torch, rep):
             f"them {err:.6g} u8")
     return dict(err=err, err1=err1, faces=faces, launches=launches)
 
+# ---------------------------------------------------------------------
+# phase 12: the facade and the engines
+
+
+def loader_image(source, hw):
+    """A seeded synthetic BGR image for ``source`` (no network, no cv2)."""
+    import zlib
+
+    rng = np.random.default_rng(zlib.crc32(source.encode()))
+    return rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
+
+
+def identity_image(identity, jitter=0, h=240, w=320):
+    """The identity-coded image: identity and jitter in pixels [0, 0] and
+    [0, 1] of every channel."""
+    img = np.full((h, w, 3), 128, np.uint8)
+    img[0, 0, :] = identity
+    img[0, 1, :] = jitter
+    return img
+
+
+def identity_embedding(identity, jitter=0, dim=512):
+    """A fixed unit vector per identity; a jitter moves it to cosine about
+    0.83 (above the grouping thresholds, below the duplicate one)."""
+    v = np.random.default_rng(1000 + identity).normal(size=dim).astype(
+        np.float32)
+    if jitter:
+        v = v / np.linalg.norm(v)
+        v = v + np.random.default_rng(5000 + jitter).normal(
+            scale=0.03, size=dim).astype(np.float32)
+    return v / np.linalg.norm(v)
+
+
+class IdentityApp:
+    """FaceAnalysis-shaped stand-in whose faces are read from the image's
+    identity pixels: one face a image, its embedding
+    ``identity_embedding``. ``get_batch`` is the port facade's routing."""
+
+    MIN_STATIC_GROUP = 8
+
+    def __init__(self, det_score=0.9, bbox=(100, 100, 200, 230)):
+        self.det_score = det_score
+        self.bbox = np.asarray(bbox, np.float32)
+        self._microbatcher = None
+
+    def prepare(self, ctx_id=0, det_size=(640, 640), det_thresh=0.5):
+        pass
+
+    def get(self, image, max_num=0):
+        return self.get_batch([np.asarray(image)], max_num=max_num)[0]
+
+    def get_batch(self, images, max_num=0):
+        from scrfd_arcface_facerecognition_tpu_torch.apps import FaceAnalysis
+
+        return FaceAnalysis.get_batch(self, images, max_num=max_num)
+
+    def _get_batch_direct(self, images, max_num=0):
+        from scrfd_arcface_facerecognition_tpu_torch.apps import Face
+
+        out = []
+        for im in images:
+            im = np.asarray(im)
+            emb = identity_embedding(int(im[0, 0, 0]), int(im[0, 1, 0]))
+            x1, y1, x2, y2 = self.bbox
+            cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+            kps = np.asarray([[cx - 30, cy - 30], [cx + 30, cy - 30],
+                              [cx, cy], [cx - 30, cy + 30],
+                              [cx + 30, cy + 30]], np.float32)
+            out.append([Face(bbox=self.bbox.copy(), kps=kps,
+                             det_score=self.det_score, embedding=emb * 10.0,
+                             normed_embedding=emb)])
+        return out
+
+
+def engine_visits(n, url, box=True):
+    """n visit records, visit i's image at ``url(i)``."""
+    ok_box = {"width": 90, "height": 120, "top": 300, "left": 300}
+    return {"visits": [{
+        "id": i, "image": url(i), "customerId": f"cust_{i}",
+        "entryTime": f"2025-01-0{1 + i % 9}T10:00:00", "branchId": "b1",
+        "entryEventIds": ([{"box": ok_box, "event": "entry",
+                            "fileName": f"f{i}.jpg", "camera": "cam1"}]
+                          if box else [])} for i in range(n)]}
+
+
+_PERSON = __import__("re").compile(r"^(Person_.*)_\d{9,}$")
+# the columns SQLite fills from the clock (CURRENT_TIMESTAMP)
+CLOCK_COLUMNS = ("created_at", "last_seen", "processed_at")
+
+
+def without_clock(v):
+    """A record value without what the clock wrote: the clock columns of
+    dict rows and the time() suffix of person names."""
+    if isinstance(v, str):
+        return _PERSON.sub(r"\1_<t>", v)
+    if isinstance(v, dict):
+        return {k: without_clock(x) for k, x in v.items()
+                if k not in CLOCK_COLUMNS}
+    if isinstance(v, (list, tuple)):
+        return [without_clock(x) for x in v]
+    return v
+
+
+def engine_record(engine):
+    """What an engine decided, without timestamps: every SQLite table's
+    rows in insertion order (without the clock columns), the
+    clustering_results payloads in the order written (without job id and
+    time), the gallery's ids."""
+    import glob
+    import sqlite3
+
+    con = sqlite3.connect(engine.database_path)
+    try:
+        tables = [r[0] for r in con.execute(
+            "SELECT name FROM sqlite_master WHERE type='table' AND name "
+            "NOT LIKE 'sqlite_%' ORDER BY name")]
+        db = {}
+        for t in tables:
+            cur = con.execute(f"SELECT * FROM {t} ORDER BY rowid")
+            cols = [d[0] for d in cur.description]
+            db[t] = [without_clock(dict(zip(cols, row))) for row in cur]
+    finally:
+        con.close()
+    files = sorted(glob.glob(os.path.join(engine.json_storage.output_dir,
+                                          "clustering_results_*.json")),
+                   key=lambda f: (os.path.getmtime(f), f))
+    payloads = []
+    for f in files:
+        with open(f) as fh:
+            p = json.load(fh)
+        p.pop("job_id", None)
+        p.pop("timestamp", None)
+        payloads.append(without_clock(p))
+    return {"db": db, "json": payloads,
+            "gallery": sorted(engine.vector_db.ids())}
+
+
+def record_diff(a, b, tol, path="record"):
+    """None when the records agree (floats within ``tol``), else the path
+    of the first difference and the two values."""
+    if isinstance(a, float) or isinstance(b, float):
+        if (isinstance(a, (int, float)) and isinstance(b, (int, float))
+                and abs(a - b) <= tol):
+            return None
+        return f"{path}: {a!r} != {b!r}"
+    if isinstance(a, dict) and isinstance(b, dict):
+        if sorted(a) != sorted(b):
+            return f"{path}: keys {sorted(a)} != {sorted(b)}"
+        for k in a:
+            d = record_diff(a[k], b[k], tol, f"{path}[{k!r}]")
+            if d:
+                return d
+        return None
+    if isinstance(a, list) and isinstance(b, list):
+        if len(a) != len(b):
+            return f"{path}: length {len(a)} != {len(b)}"
+        for i, (x, y) in enumerate(zip(a, b)):
+            d = record_diff(x, y, tol, f"{path}[{i}]")
+            if d:
+                return d
+        return None
+    return None if a == b else f"{path}: {a!r} != {b!r}"
+
+
+def engine_config(tmp, **vdb):
+    from scrfd_arcface_facerecognition_tpu_torch.utils.config import (
+        DEFAULT_CONFIG, deep_update)
+
+    return deep_update(DEFAULT_CONFIG, {
+        "system": {"database_path": os.path.join(tmp, "face.db"),
+                   "image_cache_dir": os.path.join(tmp, "cache")},
+        "vector_database": vdb})
+
+
+def faces_close(want, got):
+    """The microbatch contract: same face count, bbox atol 1e-2,
+    embeddings atol 1e-3."""
+    if len(want) != len(got):
+        return False
+    return all(np.allclose(a.bbox, b.bbox, atol=1e-2, rtol=0)
+               and np.allclose(a.normed_embedding, b.normed_embedding,
+                               atol=1e-3, rtol=0)
+               for a, b in zip(want, got))
+
+
+@contextlib.contextmanager
+def captured_calls(module, name, key=None):
+    """Calls of ``module.<name>`` go through unchanged; the list this
+    yields gets a clone of the positional arguments of every call, or with
+    ``key`` of the first call for each ``key(args)``. The clones are made
+    before the call, so they are the inputs that call saw."""
+    fn = getattr(module, name)
+    kept, seen = [], set()
+
+    def wrapped(*a, **k):
+        sig = key(a) if key else len(kept)
+        if sig not in seen:
+            seen.add(sig)
+            kept.append(tuple(x.clone() if hasattr(x, "clone") else x
+                              for x in a))
+        return fn(*a, **k)
+
+    setattr(module, name, wrapped)
+    try:
+        yield kept
+    finally:
+        setattr(module, name, fn)
+
+
+def k1_capture():
+    """K1's inputs on the facade path: the first call for each frame-batch
+    shape (each static chunk shape and each dynamic bucket)."""
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+
+    return captured_calls(ops, "warp_align_crops",
+                          key=lambda a: tuple(a[0].shape))
+
+
+def k1_on_path(torch, wa, calls):
+    """K1 against its plain version on captured (frames, minv, frame_idx)
+    calls: the largest error in u8 units and a summary of the inputs."""
+    worst = 0.0
+    for frames, minv, fidx in calls:
+        err, _ = compare_k1(torch, wa, frames, minv, fidx)
+        worst = max(worst, err)
+    shapes = ", ".join(f"{len(m)} crops over {'x'.join(map(str, f.shape[:3]))}"
+                       for f, m, _ in calls)
+    return worst, f"{len(calls)} calls ({shapes})"
+
+
+class LogRecords(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+@contextlib.contextmanager
+def port_log(what):
+    """The port's log records at INFO and above during the block, in the
+    list this yields; an ERROR record fails the run once the block ends
+    (the engines log a fault they absorb at ERROR)."""
+    lg = logging.getLogger("scrfd_arcface_facerecognition_tpu_torch")
+    handler, level = LogRecords(), lg.level
+    lg.addHandler(handler)
+    lg.setLevel(logging.INFO)
+    try:
+        yield handler.records
+    finally:
+        lg.removeHandler(handler)
+        lg.setLevel(level)
+    errors = [r for r in handler.records if r.levelno >= logging.ERROR]
+    if errors:
+        fail(f"{what}: the port logged {len(errors)} error(s), the first: "
+             f"{errors[0].name}: {errors[0].getMessage()}")
+
+
+# the engine's gates that count a visit as "no face", by the message each
+# logs (apps/clustering.py _gate_face); a visit with no face logs nothing
+NO_FACE_GATES = (("confidence", "face confidence too low"),
+                 ("side face", "side face rejected"))
+
+
+def no_face_split(records, n_no_face):
+    """The "no face" count split by the gate that gave it."""
+    split = {name: sum(r.msg.startswith(prefix) for r in records)
+             for name, prefix in NO_FACE_GATES}
+    split["no face detected"] = n_no_face - sum(split.values())
+    return split
+
+
+def phase_facade(torch, rep):
+    """12a: get_batch over the three routes; returns the facade."""
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+    from scrfd_arcface_facerecognition_tpu_torch.apps import FaceAnalysis
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    t0 = time.perf_counter()
+    app = FaceAnalysis(det_variant=FACADE["det"], rec_variant=FACADE["rec"],
+                       max_det=FACADE["max_det"], seed=0, device=DEV)
+    app.prepare(det_size=FACADE["det_size"])
+    rng = np.random.default_rng(12)
+    (ns, hs, ws), (nt, ht, wt) = FACADE["static"], FACADE["stream"]
+    static = [rng.integers(0, 256, (hs, ws, 3), dtype=np.uint8)
+              for _ in range(ns)]
+    stream = [rng.integers(0, 256, (ht, wt, 3), dtype=np.uint8)
+              for _ in range(nt)]
+    oneoff = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for h, w in FACADE["oneoff"]]
+    images = static + stream + oneoff
+    chunks, buckets = app.routes(images)
+    if len(chunks) < 2 or not buckets:
+        fail(f"facade: routing gave {len(chunks)} static chunks and "
+             f"{len(buckets)} buckets")
+    with k1_capture() as k1_calls:          # warm-up (cuDNN, allocator)
+        app.get_batch(images)
+    torch.cuda.synchronize()
+    rep.say(f"facade: FaceAnalysis({FACADE['det']} + {FACADE['rec']}, "
+            f"seeded, max_det {FACADE['max_det']}) on {app.device}, "
+            f"det_size {FACADE['det_size']}; "
+            f"setup + warm-up {time.perf_counter() - t0:.2f} s")
+
+    seen = []
+    pipe = app._pipe
+
+    def spy(route, fn):
+        def wrapped(frames, *a, **k):
+            seen.append((route, tuple(np.shape(frames))))
+            return fn(frames, *a, **k)
+        return wrapped
+
+    pipe.process_stream = spy("stream", pipe.process_stream)
+    pipe.call_dynamic = spy("dynamic", pipe.call_dynamic)
+    wa.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    faces = app.get_batch(images)
+    torch.cuda.synchronize()
+    mixed_ms = (time.perf_counter() - t) * 1e3
+    launches = wa.launches
+    del pipe.process_stream, pipe.call_dynamic
+    if launches <= 0:
+        fail("facade path launched K1 no time")
+    for f in (x for fs in faces for x in fs):
+        e = np.asarray(f.normed_embedding)
+        if e.shape != (512,) or not np.isfinite(e).all() or abs(
+                float(np.linalg.norm(e)) - 1) > 1e-3:
+            fail("facade: an embedding is not a finite unit 512-vector")
+    routes = {r for r, _ in seen}
+    if routes != {"stream", "dynamic"}:
+        fail(f"facade: routes taken {sorted(routes)}")
+    per = [len(f) for f in faces]
+    rep.say(f"facade: get_batch of {len(images)} images in {mixed_ms:.2f} ms, "
+            f"K1 launches {launches}; faces per image: static "
+            f"{ns}x{hs}x{ws} {per[:ns]}, {nt}x{ht}x{wt} "
+            f"{per[ns:ns + nt]}, one-off {per[ns + nt:]}; routes: "
+            f"{len(chunks)} static chunks "
+            f"{[len(c) for c in chunks]} streamed through process_stream, "
+            + ", ".join(f"bucket {bh}x{bw} {len(ix)} image(s)"
+                        for (bh, bw), ix in buckets.items())
+            + f" through call_dynamic ({sum(r == 'dynamic' for r, _ in seen)}"
+            f" calls)")
+
+    # ms by route (medians of 3)
+    by_route = {}
+    for name, group in (("static (one chunk)", static),
+                        ("two static chunks, streamed", static + stream),
+                        ("dynamic buckets", oneoff)):
+        by_route[name] = median_ms(torch, lambda: app.get_batch(group),
+                                   n=3)[0]
+    rep.say("facade: ms per get_batch by route (median of 3): " + "; ".join(
+        f"{k} {v:.2f} ms ({v / n:.2f} an image)" for (k, v), n in zip(
+            by_route.items(), (ns, ns + nt, len(oneoff)))))
+
+    # each one-off image's dynamic canvas against its exact-shape letterbox
+    worst = 0.0
+    model_hw = app.detector.input_size
+    step = max(1, min(app.chunk, app.DYNAMIC_CHUNK))
+    for bucket_hw, idxs in buckets.items():
+        for c in range(0, len(idxs), step):
+            part = idxs[c:c + step]
+            frames, wy, wx, _, hws = app.dynamic_inputs(images, part,
+                                                        bucket_hw)
+            canvas = ops.letterbox_dynamic(
+                torch.from_numpy(frames).to(DEV),
+                torch.from_numpy(wy).to(DEV), torch.from_numpy(wx).to(DEV))
+            for bi, i in enumerate(part):
+                h, w = (int(v) for v in hws[bi])
+                exact = ops.letterbox(torch.from_numpy(images[i]).to(DEV),
+                                      ops.letterbox_plan((h, w), model_hw))
+                worst = max(worst, float((canvas[bi] - exact).abs().max()))
+    if not worst <= TOL_CANVAS:
+        fail(f"facade: dynamic canvas differs from the exact-shape "
+             f"letterbox by {worst} (tolerance {TOL_CANVAS})")
+    rep.say(f"facade: {len(oneoff)} one-off images' dynamic canvases vs "
+            f"exact-shape letterbox: max |d| {worst:.3g} (tolerance "
+            f"{TOL_CANVAS})")
+
+    # K1 against its plain version on the inputs this path gave it
+    err, what = k1_on_path(torch, wa, k1_calls)
+    if len({tuple(f.shape) for f, _, _ in k1_calls}) < len(chunks) + 1:
+        fail(f"facade: K1's inputs captured from {what}")
+    rep.say(f"facade: K1 vs plain on the get_batch call's inputs, {what}: "
+            f"max abs err {err:.6g} u8 (tolerance {TOL_U8})")
+    return app, dict(launches=launches, mixed_ms=mixed_ms, routes=by_route,
+                     err=err)
+
+
+def phase_microbatch(torch, rep, app):
+    """12b: 16 threads, one get() each, through the collector."""
+    import threading
+
+    rng = np.random.default_rng(13)
+    images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for h, w in FACADE["microbatch"]]
+    groups = []
+    direct = app._get_batch_direct
+
+    def recorded(imgs, max_num=0):
+        groups.append([next(i for i, im in enumerate(images) if im is x)
+                       for x in imgs])
+        return direct(imgs, max_num=max_num)
+
+    app._get_batch_direct = recorded
+    mb = app.enable_microbatch(max_batch=len(images), max_wait_ms=50.0)
+    got = [None] * len(images)
+
+    def worker(i):
+        got[i] = app.get(images[i])
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(images))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    app.disable_microbatch()
+    del app._get_batch_direct
+    n_items, n_batches = mb.n_items, mb.n_batches
+    if n_items != len(images) or sorted(sum(groups, [])) != list(
+            range(len(images))):
+        fail(f"microbatch: {n_items} items served, groups {groups}")
+    bad = []
+    for g in groups:
+        want = app.get_batch([images[i] for i in g])
+        bad += [i for i, w in zip(g, want) if not faces_close(w, got[i])]
+    if bad:
+        fail(f"microbatch: images {bad} differ from the direct get_batch")
+    rep.say(f"microbatch: {len(images)} threads x get(), n_items {n_items}, "
+            f"n_batches {n_batches} (groups {[len(g) for g in groups]}); "
+            f"every image's faces equal the direct get_batch of its batch "
+            f"(bbox atol 1e-2, embeddings atol 1e-3; "
+            f"{sum(len(f) for f in got)} faces)")
+    return dict(n_items=n_items, n_batches=n_batches)
+
+
+def run_engine(tmp, app, loader, visits, batches, device, **vdb):
+    from scrfd_arcface_facerecognition_tpu_torch.apps import SmartFaceEngine
+
+    eng = SmartFaceEngine(config=engine_config(tmp, **vdb), app=app,
+                          image_loader=loader,
+                          results_dir=os.path.join(tmp, "results"),
+                          device=device)
+    totals = {}
+    step = -(-len(visits["visits"]) // batches)
+    for c in range(0, len(visits["visits"]), step):
+        res = eng.process_visit_data_from_json(
+            {"visits": visits["visits"][c:c + step]}, save_images=False)
+        for k, v in res.items():
+            totals[k] = totals.get(k, 0) + v
+    return eng, totals
+
+
+def phase_engine(torch, rep, app):
+    """12c: the clustering engine on the facade."""
+    import tempfile
+
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    hw = FACADE["visit_hw"]
+    loader = (lambda src, save_path=None, timeout=30:
+              loader_image(src, hw))
+    n = FACADE["visits"]
+    visits = engine_visits(n, lambda i: f"http://cam/visit_{i}.jpg")
+    with tempfile.TemporaryDirectory() as tmp, port_log(
+            "engine") as records, k1_capture() as k1_calls:
+        wa.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng, res = run_engine(tmp, app, loader, visits, 1, DEV)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        k1 = wa.launches
+        files = [os.path.join(eng.json_storage.output_dir, f)
+                 for f in os.listdir(eng.json_storage.output_dir)]
+        size = sum(os.path.getsize(f) for f in files)
+    # each visit lands in exactly one of these counters
+    if k1 <= 0 or sum(res[k] for k in (
+            "new_persons", "recognized", "duplicate_faces", "no_faces",
+            "low_quality", "download_failed")) != n:
+        fail(f"engine: K1 launches {k1}, results {res}")
+    rep.say(f"engine: SmartFaceEngine on the facade, {n} visits of "
+            f"{hw[0]}x{hw[1]} images (seeded weights: groupings are not "
+            f"meaningful): new persons {res['new_persons']}, assigned "
+            f"{res['recognized']}, skipped (duplicates) "
+            f"{res['duplicate_faces']}, no face {res['no_faces']}, low "
+            f"quality {res['low_quality']}; {ms:.1f} ms, {ms / n:.2f} ms a "
+            f"visit; K1 launches {k1}; clustering_results {len(files)} "
+            f"file(s), {size} B")
+    split = no_face_split(records, res["no_faces"])
+    if split["no face detected"] < 0:
+        fail(f"engine: {res['no_faces']} visits counted no face, but the "
+             f"gates logged {split}")
+    err, what = k1_on_path(torch, wa, k1_calls)
+    rep.say(f"engine: 'no face' by gate: " + ", ".join(
+        f"{k} {v}" for k, v in split.items()) + f"; no ERROR logged; K1 vs "
+        f"plain on the run's inputs, {what}: max abs err {err:.6g} u8")
+    return dict(k1=k1, ms_visit=ms / n, err=err, no_face=split)
+
+
+def phase_engine_pq(torch, rep):
+    """12c: the clustering engine on the PQ tier, identity-coded; its
+    decisions on the card equal those on the CPU."""
+    import tempfile
+
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import pq, pq_adc
+
+    cfg = ENGINE_PQ
+    ident = [(i % cfg["idents"], i // cfg["idents"])
+             for i in range(cfg["visits"])]
+    pq_visits = engine_visits(cfg["visits"],
+                              lambda i: "http://cam/id_%d_%d.jpg" % ident[i])
+
+    def pq_loader(src, save_path=None, timeout=30):
+        a, b = src.rsplit("/", 1)[1][3:-4].split("_")
+        return identity_image(int(a), int(b))
+
+    vdb = dict(tier="pq", pq_min_train_rows=cfg["min_train_rows"])
+    runs = []                     # (results, ms, K2 launches, tier, record)
+    for device in (DEV, "cpu"):
+        with tempfile.TemporaryDirectory() as tmp, port_log(
+                "engine on the PQ tier"), captured_calls(
+                pq, "pq_adc_scores") as calls:
+            pq_adc.launches = 0
+            t = time.perf_counter()
+            eng, res = run_engine(tmp, IdentityApp(), pq_loader, pq_visits,
+                                  cfg["batches"], device, **vdb)
+            runs.append((res, (time.perf_counter() - t) * 1e3,
+                         pq_adc.launches, eng.vector_db.tier,
+                         engine_record(eng)))
+        if not runs[1:]:
+            k2_calls = calls             # the searches of the card's run
+    (res, ms, k2, tier, card), cpu = runs
+    if tier != "pq" or k2 <= 0 or not k2_calls:
+        fail(f"engine on the PQ tier: tier {tier}, K2 launches {k2}, "
+             f"{len(k2_calls)} searches captured")
+    # K2 against its plain version on each search's LUT and codes: the
+    # decisions come from the exact rerank of K2's shortlist, so they
+    # alone would not show a wrong score
+    err, rel = 0.0, 0.0
+    for lut, codes, precision in k2_calls:
+        e, r = compare_k2(torch, pq_adc, lut, codes, precision)
+        err, rel = max(err, e), max(rel, r)
+    diff = record_diff(card, cpu[4], TOL_RECORD)
+    if diff:
+        fail(f"engine on the PQ tier: card and CPU decide differently: "
+             f"{diff}")
+    n_rows = sum(len(v) for v in card["db"].values())
+    rep.say(f"engine, PQ tier (min_train_rows {cfg['min_train_rows']}), "
+            f"identity-coded app, {cfg['visits']} visits of "
+            f"{cfg['idents']} identities in {cfg['batches']} batches: new "
+            f"persons {res['new_persons']}, assigned {res['recognized']}, "
+            f"skipped {res['duplicate_faces']}, no face {res['no_faces']}; "
+            f"{ms / cfg['visits']:.2f} ms a visit on the card "
+            f"({cpu[1] / cfg['visits']:.2f} on the CPU); K2 launches "
+            f"{k2}; decisions ({n_rows} SQLite rows, "
+            f"{len(card['json'])} results files) equal to the CPU "
+            f"run's (floats within {TOL_RECORD}); K2 vs plain on the "
+            f"searches' inputs (" + ", ".join(
+                f"LUT {tuple(lut.shape)} {prec}, codes {tuple(codes.shape)}"
+                for lut, codes, prec in k2_calls) + f"): max abs err "
+            f"{err:.6g} = {rel:.3g} of max |score| (tolerance {TOL_K2})")
+    return dict(k2=k2, ms_visit=ms / cfg["visits"], err=err)
+
+
+def phase_verification(torch, rep, app):
+    """12d: FaceComparison on the facade."""
+    from scrfd_arcface_facerecognition_tpu_torch.apps import FaceComparison
+    from scrfd_arcface_facerecognition_tpu_torch.apps.verification import (
+        build_comparison_results_json)
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.utils.config import (
+        DEFAULT_CONFIG)
+
+    hw = FACADE["visit_hw"]
+    n = FACADE["pairs"]
+    fc = FaceComparison(config=DEFAULT_CONFIG, app=app,
+                        image_loader=lambda src: loader_image(src, hw),
+                        log_file=None, device=DEV)
+    records = fc.transform_records([
+        {"id": f"r{i}", "image": f"http://cam/a_{i}.jpg",
+         "refImage": f"http://cam/{'a' if i % 3 == 0 else 'b'}_{i}.jpg",
+         "isConverted": i % 2 == 0, "branchId": "b1"} for i in range(n)])
+    with port_log("verification"):
+        wa.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fc.process_face_comparisons(records)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        k1 = wa.launches
+    keys = {"total_comparisons", "processed", "same_person",
+            "different_person", "errors", "accuracy_vs_api", "api_matches",
+            "total_with_api_data", "results"}
+    ok = (keys <= set(out) and out["total_comparisons"] == n
+          and out["processed"] == n == len(out["results"])
+          and out["same_person"] + out["different_person"]
+          + out["errors"] == n
+          and out["total_with_api_data"] == n
+          and 0 <= out["api_matches"] <= n
+          and abs(out["accuracy_vs_api"] - 100.0 * out["api_matches"] / n)
+          < 1e-9)
+    payload = build_comparison_results_json(out)
+    if not ok or len(payload["comparisons"]) != n or k1 <= 0:
+        fail(f"verification: malformed accuracy block "
+             f"{ {k: v for k, v in out.items() if k != 'results'} }, "
+             f"K1 launches {k1}")
+    block = {k: out[k] for k in ("total_comparisons", "same_person",
+                                 "different_person", "errors",
+                                 "accuracy_vs_api", "api_matches")}
+    rep.say(f"verification: FaceComparison on the facade, {n} pairs of "
+            f"{hw[0]}x{hw[1]} images: {json.dumps(block)}; {ms:.1f} ms, "
+            f"{ms / n:.2f} ms a pair; K1 launches {k1}")
+    return dict(ms_pair=ms / n, k1=k1)
+
+
 def main():
     import torch
 
@@ -1508,20 +2169,29 @@ def main():
     k4 = phase_k4(torch, rep)
     sp = phase_standin_path(torch, rep)
 
-    # 12. kernels
+    # 12. the facade and the engines
+    app, fa = phase_facade(torch, rep)
+    phase_microbatch(torch, rep, app)
+    eng = phase_engine(torch, rep, app)
+    eng_pq = phase_engine_pq(torch, rep)
+    phase_verification(torch, rep, app)
+
+    # 13. kernels
     t2 = gal["times"]
     kernels = [{
         "name": wa.NAME, "route": "cuda",
         "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/warp_align.cu",
         "replaces": "scrfd_arcface_facerecognition_tpu/ops/pallas_warp.py:430",
-        "launches": launches, "max_abs_err": max(err3, err4, sp["err1"]),
+        "launches": launches,
+        "max_abs_err": max(err3, err4, sp["err1"], fa["err"], eng["err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     }, {
         "name": pq_adc.NAME, "route": "cuda",
         "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/pq_adc.cu",
         "replaces": "scrfd_arcface_facerecognition_tpu/gallery/pq.py:302",
-        "launches": gal["launches"], "max_abs_err": max(err6, gal["err"]),
+        "launches": gal["launches"],
+        "max_abs_err": max(err6, gal["err"], eng_pq["err"]),
         "ms": t2["ms"], "plain_ms": t2["plain_ms"],
         "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
         "library_ms": t2["library_ms"],

@@ -7,7 +7,9 @@ reference: this package imports nothing of it (nor of JAX or Flax) and
 keeps its own copies of what it needs.
 
 Entry points (``FacePipeline``, ``Detector``, ``Embedder``, the galleries
-``GalleryStore``, ``PQGallery`` and ``AutoGallery``) put their weights,
+``GalleryStore``, ``PQGallery`` and ``AutoGallery``, the ``FaceAnalysis``
+facade and the engines under ``apps/``: ``SmartFaceEngine`` and
+``FaceComparison``) put their weights,
 rows and work on the CUDA card unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU device they raise.
 
@@ -24,6 +26,8 @@ conv (``csrc/conv3x3.cu``). Released-format ``.onnx`` weights load through
 from .device import resolve_device
 from .pipeline import Detector, Embedder, FacePipeline
 from .gallery import AutoGallery, GalleryStore
+from .apps import FaceAnalysis, FaceComparison, SmartFaceEngine
 
 __all__ = ["resolve_device", "FacePipeline", "Detector", "Embedder",
-           "AutoGallery", "GalleryStore"]
+           "AutoGallery", "GalleryStore", "FaceAnalysis", "SmartFaceEngine",
+           "FaceComparison"]

@@ -5,8 +5,9 @@ from .anchors import anchor_centers, scrfd_anchor_table
 from .decode import distance2bbox, distance2kps
 from .normalize import (normalize_image, SCRFD_MEAN, SCRFD_STD, ARCFACE_MEAN,
                         ARCFACE_STD)
-from .resize import (resize_bilinear, letterbox, letterbox_plan,
-                     tight_letterbox_plan, LetterboxPlan)
+from .resize import (resize_bilinear, resize_bilinear_u8_exact, letterbox,
+                     letterbox_plan, tight_letterbox_plan, LetterboxPlan,
+                     letterbox_matrices, letterbox_dynamic)
 from .similarity import (l2_normalize, compute_similarity, cosine_matrix,
                          top_k_matches)
 from .umeyama import umeyama_similarity, estimate_norm, ARCFACE_DST
@@ -19,8 +20,9 @@ __all__ = [
     "anchor_centers", "scrfd_anchor_table",
     "distance2bbox", "distance2kps",
     "normalize_image", "SCRFD_MEAN", "SCRFD_STD", "ARCFACE_MEAN", "ARCFACE_STD",
-    "resize_bilinear", "letterbox", "letterbox_plan", "tight_letterbox_plan",
-    "LetterboxPlan",
+    "resize_bilinear", "resize_bilinear_u8_exact", "letterbox",
+    "letterbox_plan", "tight_letterbox_plan", "LetterboxPlan",
+    "letterbox_matrices", "letterbox_dynamic",
     "l2_normalize", "compute_similarity", "cosine_matrix", "top_k_matches",
     "umeyama_similarity", "estimate_norm", "ARCFACE_DST",
     "invert_affine", "warp_affine_flat", "warp_affine_inv_flat",

@@ -103,13 +103,15 @@ def _take_rows(a: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
 
 def select_top_faces(det: torch.Tensor, kps: torch.Tensor, valid: torch.Tensor,
                      max_num: int, metric: str = "max",
-                     frame_hw: Optional[Tuple[int, int]] = None
+                     frame_hw=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pick the ``max_num`` best faces by area (metric="max") or
     center-weighted area (metric="default").
 
     det (..., K, 5) [x1 y1 x2 y2 score]; kps (..., K, 5, 2); valid (..., K)
     -> the (..., max_num, ...) rows of the chosen faces and their mask.
+    ``frame_hw`` is one (h, w) or a (..., 2) integer tensor, one per row
+    of the leading dims (for metric="default").
     """
     area = (det[..., 2] - det[..., 0]) * (det[..., 3] - det[..., 1])
     if metric == "max":
@@ -117,7 +119,9 @@ def select_top_faces(det: torch.Tensor, kps: torch.Tensor, valid: torch.Tensor,
     else:
         if frame_hw is None:
             raise ValueError("frame_hw required for metric='default'")
-        cy, cx = frame_hw[0] // 2, frame_hw[1] // 2
+        half = (torch.as_tensor(frame_hw, device=det.device) // 2).to(
+            det.dtype)[..., None, :]
+        cy, cx = half[..., 0], half[..., 1]
         ox = (det[..., 0] + det[..., 2]) / 2 - cx
         oy = (det[..., 1] + det[..., 3]) / 2 - cy
         values = area - (ox * ox + oy * oy) * 2.0

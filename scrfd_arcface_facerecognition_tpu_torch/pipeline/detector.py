@@ -62,25 +62,25 @@ def decode_outputs(outputs: Dict[str, List[torch.Tensor]],
             torch.cat(all_kps, dim=1))
 
 
-def detect_batch(model: SCRFDNet, frames: torch.Tensor, *,
-                 plan: ops.LetterboxPlan, conf_thres: float, iou_thres: float,
-                 pre_nms: int, max_det: int, max_num: int = 0,
-                 metric: str = "max") -> Detections:
-    """Full detect over (B, H, W, 3) uint8 BGR frames."""
-    with stage("letterbox"):
-        canvas = ops.letterbox(frames, plan)
+def _detect_canvas(model: SCRFDNet, canvas: torch.Tensor, *,
+                   model_hw: Tuple[int, int], inv_scale, frame_hw,
+                   conf_thres: float, iou_thres: float, pre_nms: int,
+                   max_det: int, max_num: int, metric: str) -> Detections:
+    """SCRFD, decode, top-K, NMS and selection over a (B, mh, mw, 3) f32
+    canvas. ``inv_scale`` is a (B,) f32 tensor (frame pixels per canvas
+    pixel); ``frame_hw`` a (B, 2) tensor of the frames' original sizes
+    (for metric="default")."""
     with stage("scrfd"):
         net_in = ops.normalize_image(canvas, ops.SCRFD_MEAN, ops.SCRFD_STD)
         outputs = model(net_in.permute(0, 3, 1, 2).contiguous())
     with stage("decode_nms"):
-        scores, boxes, kps = decode_outputs(outputs, plan.model_hw)
+        scores, boxes, kps = decode_outputs(outputs, model_hw)
         top_scores, top_idx = ops.stable_top_k(scores, pre_nms)   # (B, K)
         top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4))
         top_kps = torch.gather(
             kps, 1, top_idx[..., None, None].expand(-1, -1, *kps.shape[2:]))
-        inv_scale = 1.0 / plan.det_scale
-        top_boxes = top_boxes * inv_scale
-        top_kps = top_kps * inv_scale
+        top_boxes = top_boxes * inv_scale[:, None, None]
+        top_kps = top_kps * inv_scale[:, None, None, None]
         valid = top_scores >= conf_thres
 
         keep = ops.nms_mask_blocked(top_boxes, iou_thres, valid)
@@ -89,7 +89,7 @@ def detect_batch(model: SCRFDNet, frames: torch.Tensor, *,
             keep, det, top_kps, max_out=max_det)
         if 0 < max_num < max_det:
             det_s, kps_s, mask_s = ops.select_top_faces(
-                det_c, kps_c, mask, max_num, metric, plan.frame_hw)
+                det_c, kps_c, mask, max_num, metric, frame_hw)
             # the reference selects (and reorders by area) only when MORE
             # than max_num faces survive NMS; otherwise score order stays
             sel = count > max_num
@@ -100,6 +100,46 @@ def detect_batch(model: SCRFDNet, frames: torch.Tensor, *,
             count = torch.clamp(count, max=max_num)
     return Detections(boxes=det_c[..., :4], scores=det_c[..., 4], kps=kps_c,
                       valid=mask, count=count)
+
+
+def detect_batch(model: SCRFDNet, frames: torch.Tensor, *,
+                 plan: ops.LetterboxPlan, conf_thres: float, iou_thres: float,
+                 pre_nms: int, max_det: int, max_num: int = 0,
+                 metric: str = "max") -> Detections:
+    """Full detect over (B, H, W, 3) uint8 BGR frames of one shape."""
+    with stage("letterbox"):
+        canvas = ops.letterbox(frames, plan)
+    b = frames.shape[0]
+    inv_scale = torch.full((b,), 1.0 / plan.det_scale, dtype=torch.float32,
+                           device=frames.device)
+    frame_hw = torch.tensor(plan.frame_hw, device=frames.device).expand(b, 2)
+    return _detect_canvas(
+        model, canvas, model_hw=plan.model_hw, inv_scale=inv_scale,
+        frame_hw=frame_hw, conf_thres=conf_thres, iou_thres=iou_thres,
+        pre_nms=pre_nms, max_det=max_det, max_num=max_num, metric=metric)
+
+
+def detect_batch_dynamic(model: SCRFDNet, frames: torch.Tensor,
+                         wy: torch.Tensor, wx: torch.Tensor,
+                         inv_scale: torch.Tensor, frame_hw: torch.Tensor, *,
+                         model_hw: Tuple[int, int], conf_thres: float,
+                         iou_thres: float, pre_nms: int, max_det: int,
+                         max_num: int = 0, metric: str = "max"
+                         ) -> Detections:
+    """Detect over images of mixed shapes, each letterbox given as data.
+
+    frames (B, Hp, Wp, 3) u8, each image zero-padded past its content;
+    wy (B, mh, Hp) / wx (B, mw, Wp) from ``ops.letterbox_matrices``;
+    inv_scale (B,) f32, 1 / det_scale per image; frame_hw (B, 2) the
+    original sizes. The canvas is the exact-shape letterbox's, so results
+    match per-shape processing.
+    """
+    with stage("letterbox"):
+        canvas = ops.letterbox_dynamic(frames, wy, wx)
+    return _detect_canvas(
+        model, canvas, model_hw=model_hw, inv_scale=inv_scale,
+        frame_hw=frame_hw, conf_thres=conf_thres, iou_thres=iou_thres,
+        pre_nms=pre_nms, max_det=max_det, max_num=max_num, metric=metric)
 
 
 class Detector:

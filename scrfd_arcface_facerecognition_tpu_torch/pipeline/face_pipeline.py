@@ -16,8 +16,9 @@ import torch
 from .. import ops
 from ..device import resolve_device
 from ..stages import stage
-from .detector import Detections, Detector, as_frames, detect_batch
-from .embedder import Embedder, embed_crops
+from .detector import (Detections, Detector, as_frames, detect_batch,
+                       detect_batch_dynamic)
+from .embedder import Embedder, embed_crops, embed_faces
 
 
 class PipelineOutput(NamedTuple):
@@ -106,6 +107,23 @@ def embed_and_match_bucketed(model, frames: torch.Tensor, det: Detections,
                           match_sim=sim_full.reshape(b, k))
 
 
+def embed_and_match(model, frames: torch.Tensor, det: Detections,
+                    gallery: torch.Tensor, gallery_valid: torch.Tensor, *,
+                    similarity_thresh: float) -> PipelineOutput:
+    """Stage 2 without bucketing: every (B, K) slot is warped, embedded
+    and matched (invalid ones give zero embeddings)."""
+    emb = embed_faces(model, frames, det.kps, det.valid)
+    b, k, d = emb.shape
+    with stage("match"):
+        best_idx, best_sim = _match_gallery(
+            emb.reshape(b * k, d), gallery, gallery_valid,
+            det.valid.reshape(b * k), similarity_thresh)
+    return PipelineOutput(boxes=det.boxes, scores=det.scores, kps=det.kps,
+                          valid=det.valid, count=det.count, embeddings=emb,
+                          match_idx=best_idx.reshape(b, k),
+                          match_sim=best_sim.reshape(b, k))
+
+
 class FacePipeline:
     """Detector + Embedder + gallery on one device.
 
@@ -178,8 +196,11 @@ class FacePipeline:
     # ------------------------------------------------------------- forward
 
     @torch.inference_mode()
-    def __call__(self, frames, max_num: int = 0,
-                 metric: str = "max") -> PipelineOutput:
+    def __call__(self, frames, max_num: int = 0, metric: str = "max",
+                 bucketed: bool = True) -> PipelineOutput:
+        """(B, H, W, 3) u8 BGR frames of one shape -> PipelineOutput.
+        ``bucketed=False`` embeds every slot instead of the valid faces'
+        bucket (same results, more work; no host sync)."""
         frames = as_frames(frames, self.device)
         plan = self.detector.plan(tuple(frames.shape[1:3]),
                                   tight=self.tight_canvas)
@@ -188,12 +209,44 @@ class FacePipeline:
             conf_thres=self.detector.conf_thres,
             iou_thres=self.detector.iou_thres, pre_nms=self.pre_nms,
             max_det=self.max_det, max_num=max_num, metric=metric)
+        if bucketed:
+            return self._finish(frames, det)
+        return embed_and_match(
+            self.embedder.model, frames, det, self._gallery,
+            self._gallery_valid, similarity_thresh=self.similarity_thresh)
+
+    @torch.inference_mode()
+    def call_dynamic(self, frames, wy, wx, det_scales, frame_hws,
+                     max_num: int = 0, metric: str = "max"
+                     ) -> PipelineOutput:
+        """A batch of images of mixed shapes, letterbox geometry as data.
+
+        frames (B, Hp, Wp, 3) u8, each image zero-padded bottom / right
+        past its content; wy (B, mh, Hp) / wx (B, mw, Wp) stacked
+        ``ops.letterbox_matrices``; det_scales (B,); frame_hws (B, 2)
+        original sizes. The canvas is the square (untrimmed) one of the
+        detector's input size, as exact-shape letterboxing gives it.
+        """
+        frames = as_frames(frames, self.device)
+
+        def dev(a, dtype):
+            return torch.as_tensor(np.asarray(a), dtype=dtype,
+                                   device=self.device)
+
+        inv_scale = 1.0 / dev(det_scales, torch.float32)
+        det = detect_batch_dynamic(
+            self.detector.model, frames, dev(wy, torch.float32),
+            dev(wx, torch.float32), inv_scale, dev(frame_hws, torch.int32),
+            model_hw=self.detector.input_size,
+            conf_thres=self.detector.conf_thres,
+            iou_thres=self.detector.iou_thres, pre_nms=self.pre_nms,
+            max_det=self.max_det, max_num=max_num, metric=metric)
         return self._finish(frames, det)
 
     def process_stream(self, frames_iter, max_num: int = 0,
                        metric: str = "max"):
         """Yields a PipelineOutput per input batch, one batch after the
-        other."""
+        other (batches may differ in shape)."""
         for frames in frames_iter:
             yield self(frames, max_num=max_num, metric=metric)
 

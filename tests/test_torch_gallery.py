@@ -19,6 +19,9 @@ from scrfd_arcface_facerecognition_tpu_torch import gallery as tgal
 from scrfd_arcface_facerecognition_tpu_torch.ops import (
     cosine_matrix, compute_similarity, top_k_matches)
 from scrfd_arcface_facerecognition_tpu_torch.runtime import native as tnative
+from torch_cores import shared_cores  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("shared_cores")
 
 
 def _rows(rng, n, d=64):

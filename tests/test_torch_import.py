@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX, Flax nor the JAX package,
-and its entry points never fall back to the CPU on their own."""
+nor cv2 at module level (the card's machine has no cv2), and its entry
+points never fall back to the CPU on their own."""
 import ast
 import os
 import subprocess
@@ -22,6 +23,10 @@ def test_import_leaves_no_jax_in_sys_modules():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    __import__(m.name)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {_FORBIDDEN!r})\n"
+        "new = ('apps.face_analysis', 'apps.clustering', 'apps.verification',\n"
+        "       'apps.quality', 'apps.metadata_db', 'apps.json_storage',\n"
+        "       'utils.config', 'runtime.microbatch')\n"
+        "bad += [m for m in new if p.__name__ + '.' + m not in sys.modules]\n"
         "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
@@ -52,19 +57,66 @@ def test_no_module_of_the_port_imports_jax_flax_or_the_jax_package():
                 "tools/exp_pallas_conv.py", "tools/conv3x3_ablate.py",
                 "tools/pq_adc_ablate.py",
                 "models/onnx_proto.py",
-                "models/config_from_graph.py", "models/onnx_import.py"):
+                "models/config_from_graph.py", "models/onnx_import.py",
+                "apps/face_analysis.py", "apps/clustering.py",
+                "apps/verification.py", "apps/quality.py",
+                "apps/metadata_db.py", "apps/json_storage.py",
+                "apps/__init__.py", "utils/config.py", "utils/__init__.py",
+                "runtime/microbatch.py"):
         assert mod in names, mod
     for path in files:
         bad = set(_imported_roots(path)) & set(_FORBIDDEN)
         assert not bad, (path, bad)
 
 
+def _module_level_roots(path):
+    """The roots a module imports when it is imported: every import
+    statement outside a function body."""
+    tree = ast.parse(open(path).read(), path)
+
+    def walk(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                  ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                for a in child.names:
+                    yield a.name.split(".")[0]
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield child.module.split(".")[0]
+            yield from walk(child)
+    return set(walk(tree))
+
+
+def test_no_module_of_the_port_imports_cv2_at_module_level():
+    files = [os.path.join(d, f) for d, _, fs in os.walk(_PKG)
+             for f in fs if f.endswith(".py")]
+    files.append(os.path.join(_REPO, "chip_smoke.py"))
+    for path in files:
+        assert "cv2" not in _module_level_roots(path), path
+    # the loader keeps its cv2 inside the function, as the original does
+    src = os.path.join(_PKG, "apps", "clustering.py")
+    assert "cv2" in set(_imported_roots(src))
+    code = ("import sys\n"
+            "import scrfd_arcface_facerecognition_tpu_torch.apps\n"
+            "print('cv2' in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "False", out.stdout
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     from scrfd_arcface_facerecognition_tpu_torch import (
-        Detector, Embedder, FacePipeline, ops, resolve_device)
+        Detector, Embedder, FaceAnalysis, FaceComparison, FacePipeline,
+        SmartFaceEngine, ops, resolve_device)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for make in (FacePipeline, Detector, Embedder,
+    for make in (FacePipeline, Detector, Embedder, FaceAnalysis,
+                 lambda: SmartFaceEngine(config={}, app=object()),
+                 lambda: FaceComparison(config={}, app=object(),
+                                        log_file=None),
                  lambda: resolve_device("cuda"),
                  lambda: ops.anchor_centers(4, 4, 8),
                  lambda: ops.scrfd_anchor_table((64, 64))):

@@ -21,6 +21,9 @@ from scrfd_arcface_facerecognition_tpu_torch.models import arcface as tarc
 from scrfd_arcface_facerecognition_tpu_torch.models import scrfd as tscrfd
 from scrfd_arcface_facerecognition_tpu_torch.models import (
     load_flax_variables, seeded_init_, state_dict_from_flax)
+from torch_cores import shared_cores  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("shared_cores")
 
 _CKPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "checkpoints", "decisions")

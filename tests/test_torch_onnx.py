@@ -37,6 +37,9 @@ from scrfd_arcface_facerecognition_tpu_torch.models.weights import (  # noqa: E4
     _leaves)
 from scrfd_arcface_facerecognition_tpu_torch.pipeline import (  # noqa: E402
     Detector as TDetector, Embedder as TEmbedder)
+from torch_cores import shared_cores  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("shared_cores")
 
 # name -> (stand-in constructor, input side)
 GRAPHS = {

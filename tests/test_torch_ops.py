@@ -18,6 +18,9 @@ from scrfd_arcface_facerecognition_tpu_torch import ops as tops
 from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as twa
 from scrfd_arcface_facerecognition_tpu_torch.pipeline.face_pipeline import (
     _match_gallery as t_match_gallery)
+from torch_cores import shared_cores  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("shared_cores")
 
 
 def _t(a):

@@ -23,6 +23,9 @@ from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as twa
 from scrfd_arcface_facerecognition_tpu_torch.pipeline import detector as tdet
 from scrfd_arcface_facerecognition_tpu_torch.pipeline import (
     Detector as TDetector, Embedder as TEmbedder, FacePipeline as TPipeline)
+from torch_cores import shared_cores  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("shared_cores")
 
 _CKPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "checkpoints", "decisions")

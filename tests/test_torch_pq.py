@@ -15,6 +15,9 @@ import torch
 from scrfd_arcface_facerecognition_tpu.gallery import pq as jpq
 from scrfd_arcface_facerecognition_tpu_torch.gallery import pq as tpq
 from scrfd_arcface_facerecognition_tpu_torch.gallery import pq_adc
+from torch_cores import shared_cores  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("shared_cores")
 
 
 def _identity_corpus(n_ids=64, per_id=8, dim=64, seed=0):

@@ -18,6 +18,9 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO)
 
 import chip_smoke  # noqa: E402
+from torch_cores import shared_cores  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("shared_cores")
 
 
 def _tf32():
@@ -251,3 +254,199 @@ def test_k2_cases_reach_the_kernels_edges(monkeypatch):
     assert said[0].startswith(f"K2 vs plain, {(18 + 18 + 6) * 2} cases")
     view = chip_smoke.k2_codes(torch, np.random.default_rng(0), 5, 64, 256, 3)
     assert view.is_contiguous() and view.data_ptr() % 16 == 3
+
+
+def _phase12_on_the_cpu(monkeypatch):
+    """chip_smoke's phase 12 at small sizes on the CPU: the wrappers take
+    their plain versions; K1's and K2's launches are counted where the
+    wrappers would count them."""
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import pq, pq_adc
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    crops, scores = ops.warp_align_crops, pq.pq_adc_scores
+
+    def counted_crops(*a, **k):
+        wa.launches += 1
+        return crops(*a, **k)
+
+    def counted_scores(*a, **k):
+        pq_adc.launches += 1
+        return scores(*a, **k)
+
+    monkeypatch.setattr(ops, "warp_align_crops", counted_crops)
+    monkeypatch.setattr(pq, "pq_adc_scores", counted_scores)
+    monkeypatch.setattr(chip_smoke, "FACADE", dict(
+        det="det_500m", rec="w600k_mbf", det_size=(128, 128), max_det=2,
+        static=(8, 64, 96), stream=(8, 96, 64),
+        oneoff=((60, 80), (97, 131), (300, 100)),
+        microbatch=[(60 + 8 * i, 70 + 4 * i) for i in range(6)],
+        visits=10, visit_hw=(64, 96), pairs=4))
+    monkeypatch.setattr(chip_smoke, "ENGINE_PQ", dict(
+        visits=40, idents=12, batches=3, min_train_rows=8))
+    said = []
+    rep = chip_smoke.Report("CPU")
+    monkeypatch.setattr(rep, "say", said.append)
+    return rep, said
+
+
+def test_facade_and_engine_phase_rehearsed_on_the_cpu(monkeypatch):
+    """Phase 12: the facade's three routes with K1 counted, the dynamic
+    canvases against exact-shape letterboxes, micro-batching against the
+    direct path, the clustering engine on the facade, the PQ-tier engine
+    run with K2 counted and its decisions equal on both devices (here both
+    the CPU), verification's accuracy block."""
+    rep, said = _phase12_on_the_cpu(monkeypatch)
+    app, fa = chip_smoke.phase_facade(torch, rep)
+    assert fa["launches"] == 4             # 2 streamed chunks + 2 buckets
+    assert set(fa["routes"]) == {"static (one chunk)",
+                                 "two static chunks, streamed",
+                                 "dynamic buckets"}
+    mb = chip_smoke.phase_microbatch(torch, rep, app)
+    assert mb["n_items"] == 6 and 1 <= mb["n_batches"] <= 6
+    assert chip_smoke.phase_engine(torch, rep, app)["k1"] > 0
+    assert chip_smoke.phase_engine_pq(torch, rep)["k2"] == 2
+    ver = chip_smoke.phase_verification(torch, rep, app)
+    assert ver["k1"] > 0
+    text = "\n".join(said)
+    for start in ("facade: get_batch of 19 images", "facade: ms per get_batch",
+                  "facade: 3 one-off images' dynamic canvases",
+                  "facade: K1 vs plain on the get_batch call's inputs",
+                  "microbatch: 6 threads", "engine: SmartFaceEngine",
+                  "engine: 'no face' by gate", "engine, PQ tier",
+                  "verification: FaceComparison"):
+        assert start in text, start
+    assert "equal to the CPU run's" in text
+    assert "K2 vs plain on the searches' inputs (LUT" in text
+    assert fa["err"] == 0.0
+
+
+def test_phase12_holds_k1_to_its_plain_version_on_the_paths_inputs(
+        monkeypatch):
+    """The facade's K1 inputs, as phase 12 captures them: the first call
+    for each frame-batch shape, cloned before the call; a kernel that
+    disagrees with its plain version on them fails the run."""
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    rng = np.random.default_rng(0)
+    frames = [torch.from_numpy(rng.integers(0, 256, (b, h, w, 3),
+                                            dtype=np.uint8))
+              for b, h, w in ((2, 40, 60), (2, 40, 60), (1, 64, 64))]
+    with chip_smoke.k1_capture() as calls:
+        for f in frames:
+            minv = torch.from_numpy(chip_smoke.warp_matrices(
+                rng, 3, *f.shape[1:3]))
+            fidx = torch.tensor([0, 1, 0], dtype=torch.int32) % len(f)
+            ops.warp_align_crops(f, minv, fidx)
+            minv.fill_(float("nan"))           # the clone kept the input
+    assert [tuple(c[0].shape) for c in calls] == [(2, 40, 60, 3),
+                                                  (1, 64, 64, 3)]
+    assert ops.warp_align_crops is wa.warp_align_crops
+    err, what = chip_smoke.k1_on_path(torch, wa, calls)
+    assert err == 0.0 and what.startswith("2 calls (3 crops over 2x40x60")
+    plain = wa.warp_align_plain
+    monkeypatch.setattr(wa, "warp_align_crops",
+                        lambda *a, **k: plain(*a, **k) + 0.01)
+    with pytest.raises(RuntimeError, match="warp_align: max abs err"):
+        chip_smoke.k1_on_path(torch, wa, calls)
+
+
+def test_phase12_holds_k2_to_its_plain_version_on_the_searches(monkeypatch):
+    """The PQ-tier run keeps every search's LUT and codes; a K2 that
+    scores them wrong fails the phase, though the exact rerank would
+    still decide alike."""
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import pq_adc
+
+    rep, _ = _phase12_on_the_cpu(monkeypatch)
+    plain = pq_adc.adc_scores_plain
+    monkeypatch.setattr(pq_adc, "pq_adc_scores",
+                        lambda lut, codes, p: plain(lut, codes, p) * 1.01)
+    with pytest.raises(RuntimeError, match="pq_adc .*max abs err"):
+        chip_smoke.phase_engine_pq(torch, rep)
+
+
+def test_phase12_fails_on_an_error_the_engine_absorbs(monkeypatch):
+    """The engine counts a visit whose decision raised as "no face" and
+    logs it at ERROR; phase 12 fails on that record."""
+    from scrfd_arcface_facerecognition_tpu_torch.apps import clustering
+
+    rep, _ = _phase12_on_the_cpu(monkeypatch)
+
+    def broken(self, *a, **k):
+        raise KeyError("gallery row")
+
+    monkeypatch.setattr(clustering.SmartFaceEngine, "_decide_visit", broken)
+    with pytest.raises(RuntimeError, match="logged 40 error.*gallery row"):
+        chip_smoke.phase_engine_pq(torch, rep)
+
+
+def test_no_face_split_names_each_gate():
+    import logging
+
+    def rec(msg):
+        return logging.LogRecord("x", logging.INFO, "f", 1, msg, None, None)
+
+    records = [rec("face confidence too low in: %s"),
+               rec("side face rejected in: %s"),
+               rec("side face rejected in: %s"), rec("something else")]
+    assert chip_smoke.no_face_split(records, 5) == {
+        "confidence": 1, "side face": 2, "no face detected": 2}
+
+
+def test_phase12_fails_when_the_engine_decides_differently(monkeypatch):
+    """The PQ-tier check compares the two runs' records: an engine that
+    decides differently on the card fails the phase."""
+    rep, _ = _phase12_on_the_cpu(monkeypatch)
+    runs = []
+    record = chip_smoke.engine_record
+
+    def second_run_differs(engine):
+        rec = record(engine)
+        runs.append(1)
+        if len(runs) == 2:
+            rec["db"]["person_visits"][0]["similarity"] += 1e-3
+        return rec
+
+    monkeypatch.setattr(chip_smoke, "engine_record", second_run_differs)
+    with pytest.raises(RuntimeError, match="decide differently"):
+        chip_smoke.phase_engine_pq(torch, rep)
+
+
+def test_record_diff_holds_floats_to_the_tolerance():
+    a = {"x": [1, 0.5, "Person_c_<t>"], "y": {"z": None}}
+    assert chip_smoke.record_diff(a, {"x": [1, 0.5 + 1e-6, "Person_c_<t>"],
+                                      "y": {"z": None}}, 1e-5) is None
+    assert "record['x'][1]" in chip_smoke.record_diff(
+        a, {"x": [1, 0.51, "Person_c_<t>"], "y": {"z": None}}, 1e-5)
+    assert "length" in chip_smoke.record_diff([1], [1, 2], 0)
+    assert "keys" in chip_smoke.record_diff({"a": 1}, {"b": 1}, 0)
+    assert chip_smoke.without_clock(
+        {"name": "Person_cust_3_1792209646", "created_at": "2026-01-01",
+         "rows": [{"last_seen": 1, "v": 2}]}) == {
+        "name": "Person_cust_3_<t>", "rows": [{"v": 2}]}
+
+
+def test_identity_app_gives_the_fake_stacks_faces():
+    """chip_smoke's IdentityApp (it may not import tests/fake_stack.py,
+    which imports JAX) reads the same identities and gives the same
+    faces as tests/fake_stack.FakeFaceAnalysis."""
+    from fake_stack import FakeFaceAnalysis, make_image
+
+    images = [make_image(i, jitter=j) for i in (1, 5, 200) for j in (0, 2)]
+    assert all(np.array_equal(chip_smoke.identity_image(i, j), im)
+               for (i, j), im in zip([(i, j) for i in (1, 5, 200)
+                                      for j in (0, 2)], images))
+    want = FakeFaceAnalysis().get_batch(images)
+    got = chip_smoke.IdentityApp().get_batch(images)
+    for w, g in zip(want, got):
+        assert len(w) == len(g) == 1
+        np.testing.assert_array_equal(g[0].normed_embedding,
+                                      w[0].normed_embedding)
+        np.testing.assert_array_equal(g[0].bbox, w[0].bbox)
+        np.testing.assert_array_equal(g[0].kps, w[0].kps)
+        assert g[0].det_score == w[0].det_score

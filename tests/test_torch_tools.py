@@ -31,6 +31,9 @@ from scrfd_arcface_facerecognition_tpu_torch import cuda_build  # noqa: E402
 from scrfd_arcface_facerecognition_tpu_torch.tools import (  # noqa: E402
     conv3x3_ablate, exp_pallas_conv as tconv, exp_warp2 as twarp,
     pq_adc_ablate, warp_align_ablate, warp_band_ablate)
+from torch_cores import shared_cores  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("shared_cores")
 
 
 def _similarity(sigma, ang, cx, cy):

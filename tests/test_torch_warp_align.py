@@ -26,6 +26,9 @@ from scrfd_arcface_facerecognition_tpu_torch import cuda_build
 from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
 from scrfd_arcface_facerecognition_tpu_torch.ops.warp import invert_affine
 from scrfd_arcface_facerecognition_tpu_torch.tools import warp_align_ablate
+from torch_cores import shared_cores  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("shared_cores")
 
 
 def _geometry(src=None):
