@@ -114,8 +114,46 @@ non-zero exit if it fails:
    (image, refImage) pairs with the facade: the accuracy block well formed,
    ms per pair. Any ERROR record that the port logs during (c) or (d)
    fails the phase: the engine counts a visit whose decision raised as
-   "no face", so the log is where such a fault shows;
-13. one JSON line of every kernel's numbers.
+   "no face", so the log is where such a fault shows, and the run fails
+   when no visit reaches the gallery. The facade is pinned to f32, as in
+   the phase's first form: at bf16 the seeded detector's boxes fail the
+   engine's side-face gate on every visit, and the engine's decisions
+   would not run. The facade's default (bf16 on the card) is built and
+   driven once beside it (finite unit embeddings);
+13. the main path at bf16 at bench.py's settings (``BENCH``): the
+   det_10g + w600k_r50 stand-ins at bf16 (weights f32), 96 x 1080p frames
+   resident on the card, gallery 128, max_det 16, max_num 10, pre_nms 256,
+   conf 0.5; after warm-up ``process_stream([frames] * 12, depth=12)`` for
+   3 rounds (the median frames/s and the spread), K1's count reset just
+   before and read just after; then depth 1 and 2 alike, and the frames
+   fed from numpy at depth 1, 2 and 12, through the pipeline's pinned
+   staging and through the plain pageable copy it replaces; one call of
+   each precision split by stage (CUDA events); bf16 against f32 on the
+   same frames (faces paired by IoU, match_idx agreement, the minimum
+   embedding cosine); K1 against its plain version on the path's inputs;
+   one line ``{"bench_bf16": {...}}``; then (13b, ``CKPT``) the committed
+   trained det_500m + w600k_mbf (read with the port's msgpack reader) at
+   bf16 on the card against the CPU, at the budget of
+   ``tests/test_torch_bf16.py``: head outputs on one canvas within 2 bf16
+   ulps, and the card's bf16 at least half an ulp from its f32 (a forward
+   that stays f32 fails); the pipeline's faces on 16 smooth seeded frames
+   paired by IoU >= 0.9, each face on one side only a checked tie (at
+   most 2), boxes / kps / scores within budget, embeddings cosine >=
+   0.999, match_idx equal away from the threshold;
+14. the realtime app (``REALTIME``): ``apps.realtime.run`` on a synthetic
+   cv2-shaped capture of 43 seeded 1080p frames (the last batch partial)
+   through ``BatchedFrameReader`` over the native ring, ``--batch 8``, the
+   stand-ins at bf16, a faces directory of seeded photos; the opener, the
+   writer, the photo reader and ``annotate_batch`` replaced (the card's
+   machine has no cv2); every frame written, in order; each batch's
+   count, valid and match_idx equal to a direct ``FacePipeline`` call on
+   the same frames, embeddings cosine >= 0.999; K1's count reset just
+   before the run and read just after, and K1 against its plain version
+   on the run's inputs; frames/s of the run with the decode thread
+   overlapping, and numpy-fed ``process_stream`` over its batches at
+   depth 1 and 2, staged and through the plain copy;
+15. one JSON line of every kernel's numbers (K1's launches are those of
+   phases 4, 13 and 14).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside it, the script exits non-zero and prints no
@@ -191,6 +229,21 @@ FACADE = dict(det="det_10g", rec="w600k_r50", det_size=(640, 640), max_det=16,
               microbatch=[(200 + 24 * i, 260 + 16 * i) for i in range(16)],
               visits=200, visit_hw=(480, 640), pairs=50)
 ENGINE_PQ = dict(visits=300, idents=120, batches=3, min_train_rows=64)
+# phase 13: bench.py's settings (frames a batch, batches a round = depth,
+# rounds; the other depths timed; the depths timed with frames fed from
+# numpy); phase 14: the realtime app's capture (frames, size), --batch, the
+# faces directory's photos
+BENCH = dict(frames=96, hw=(1080, 1920), depth=12, depths=(1, 2),
+             fed_depths=(1, 2, 12), rounds=3, max_num=10, gallery=128,
+             conf=0.5, pre_nms=256, max_det=16)
+# phase 13b: the trained checkpoints at bf16, card against CPU (frames n x
+# h x w; the detector's settings of tests/test_torch_bf16.py; faces on one
+# side only allowed, each a checked tie)
+CKPT = dict(det="det_500m", rec="w600k_mbf", frames=(16, 240, 320),
+            input_size=(256, 256), conf=0.1, pre_nms=64, max_det=6, sim=0.4,
+            max_ties=2)
+REALTIME = dict(frames=43, hw=(1080, 1920), batch=8, faces=3, rounds=3,
+                pre_nms=256, max_det=16)
 TOL_CANVAS = 1e-4       # dynamic canvas vs exact-shape letterbox
 TOL_RECORD = 1e-5       # engine floats (similarities), card vs CPU
 
@@ -1764,6 +1817,15 @@ def no_face_split(records, n_no_face):
     return split
 
 
+def unit_embeddings(faces, what):
+    """Every face's embedding a finite unit 512-vector."""
+    for f in (x for fs in faces for x in fs):
+        e = np.asarray(f.normed_embedding)
+        if e.shape != (512,) or not np.isfinite(e).all() or abs(
+                float(np.linalg.norm(e)) - 1) > 1e-3:
+            fail(f"{what}: an embedding is not a finite unit 512-vector")
+
+
 def phase_facade(torch, rep):
     """12a: get_batch over the three routes; returns the facade."""
     from scrfd_arcface_facerecognition_tpu_torch import ops
@@ -1772,7 +1834,8 @@ def phase_facade(torch, rep):
 
     t0 = time.perf_counter()
     app = FaceAnalysis(det_variant=FACADE["det"], rec_variant=FACADE["rec"],
-                       max_det=FACADE["max_det"], seed=0, device=DEV)
+                       max_det=FACADE["max_det"], seed=0,
+                       dtype=torch.float32, device=DEV)
     app.prepare(det_size=FACADE["det_size"])
     rng = np.random.default_rng(12)
     (ns, hs, ws), (nt, ht, wt) = FACADE["static"], FACADE["stream"]
@@ -1791,7 +1854,8 @@ def phase_facade(torch, rep):
         app.get_batch(images)
     torch.cuda.synchronize()
     rep.say(f"facade: FaceAnalysis({FACADE['det']} + {FACADE['rec']}, "
-            f"seeded, max_det {FACADE['max_det']}) on {app.device}, "
+            f"seeded, max_det {FACADE['max_det']}, dtype {app.dtype}) on "
+            f"{app.device}, "
             f"det_size {FACADE['det_size']}; "
             f"setup + warm-up {time.perf_counter() - t0:.2f} s")
 
@@ -1816,11 +1880,7 @@ def phase_facade(torch, rep):
     del pipe.process_stream, pipe.call_dynamic
     if launches <= 0:
         fail("facade path launched K1 no time")
-    for f in (x for fs in faces for x in fs):
-        e = np.asarray(f.normed_embedding)
-        if e.shape != (512,) or not np.isfinite(e).all() or abs(
-                float(np.linalg.norm(e)) - 1) > 1e-3:
-            fail("facade: an embedding is not a finite unit 512-vector")
+    unit_embeddings(faces, "facade")
     routes = {r for r, _ in seen}
     if routes != {"stream", "dynamic"}:
         fail(f"facade: routes taken {sorted(routes)}")
@@ -1835,6 +1895,22 @@ def phase_facade(torch, rep):
                         for (bh, bw), ix in buckets.items())
             + f" through call_dynamic ({sum(r == 'dynamic' for r, _ in seen)}"
             f" calls)")
+
+    # the facade's default dtype: bf16 on the card (f32 on the CPU)
+    dflt = FaceAnalysis(det_variant=FACADE["det"], rec_variant=FACADE["rec"],
+                        max_det=FACADE["max_det"], seed=0, device=DEV)
+    dflt.prepare(det_size=FACADE["det_size"])
+    want = torch.bfloat16 if DEV == "cuda" else torch.float32
+    if (dflt.detector.dtype, dflt.embedder.dtype) != (want, want):
+        fail(f"facade: the default dtype on {DEV} is "
+             f"{dflt.detector.dtype}, not {want}")
+    got = dflt.get_batch(images)
+    unit_embeddings(got, "facade (default dtype)")
+    rep.say(f"facade: the default dtype on the card, "
+            f"{dflt.detector.dtype}: get_batch of the same {len(images)} "
+            f"images, {sum(len(f) for f in got)} faces, every embedding a "
+            f"finite unit 512-vector")
+    del dflt, got
 
     # ms by route (medians of 3)
     by_route = {}
@@ -1969,10 +2045,12 @@ def phase_engine(torch, rep, app):
         files = [os.path.join(eng.json_storage.output_dir, f)
                  for f in os.listdir(eng.json_storage.output_dir)]
         size = sum(os.path.getsize(f) for f in files)
-    # each visit lands in exactly one of these counters
+    # each visit lands in exactly one of these counters, and some reach
+    # the gallery (a decision taken on a model embedding)
     if k1 <= 0 or sum(res[k] for k in (
             "new_persons", "recognized", "duplicate_faces", "no_faces",
-            "low_quality", "download_failed")) != n:
+            "low_quality", "download_failed")) != n or sum(res[k] for k in (
+                "new_persons", "recognized", "duplicate_faces")) == 0:
         fail(f"engine: K1 launches {k1}, results {res}")
     rep.say(f"engine: SmartFaceEngine on the facade, {n} visits of "
             f"{hw[0]}x{hw[1]} images (seeded weights: groupings are not "
@@ -2109,6 +2187,738 @@ def phase_verification(torch, rep, app):
     return dict(ms_pair=ms / n, k1=k1)
 
 
+# ---------------------------------------------------------------------
+# phase 13: the bf16 main path at bench.py's settings
+
+
+def standin_parts(torch, dtype, **det_kw):
+    """Detector and Embedder on the det_10g + w600k_r50 stand-ins (phase
+    11's ONNX files, loaded through the port's importer once a run) at
+    ``dtype``."""
+    from scrfd_arcface_facerecognition_tpu_torch.models.config_from_graph import (
+        variables_from_onnx)
+    from scrfd_arcface_facerecognition_tpu_torch.pipeline import (
+        Detector, Embedder)
+
+    if not _STANDIN_VARS:
+        build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "standins")
+        paths = standin_onnx(torch, build)
+        _STANDIN_VARS["det"] = variables_from_onnx(paths["det_10g"],
+                                                   name="det_10g")
+        _STANDIN_VARS["rec"] = variables_from_onnx(paths["w600k_r50"],
+                                                   name="w600k_r50")
+    (det_cfg, det_v), (rec_cfg, rec_v) = (_STANDIN_VARS["det"],
+                                          _STANDIN_VARS["rec"])
+    det = Detector(config=det_cfg, variables=det_v, dtype=dtype, device=DEV,
+                   **det_kw)
+    emb = Embedder(config=rec_cfg, variables=rec_v, dtype=dtype, device=DEV)
+    return det, emb
+
+
+_STANDIN_VARS = {}
+
+
+def iou_pairs(boxes_a, valid_a, boxes_b, valid_b, thresh=0.9):
+    """One frame's faces paired by IoU >= thresh, best first: [(i, j)]
+    slot indices, and the count found on one side only."""
+    ia = [k for k in range(len(valid_a)) if valid_a[k]]
+    ib = [k for k in range(len(valid_b)) if valid_b[k]]
+    pairs, used = [], set()
+    for i in ia:
+        a = boxes_a[i]
+        best, bj = thresh, None
+        for j in ib:
+            if j in used:
+                continue
+            b = boxes_b[j]
+            iw = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+            ih = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+            inter = iw * ih
+            union = ((a[2] - a[0]) * (a[3] - a[1])
+                     + (b[2] - b[0]) * (b[3] - b[1]) - inter)
+            v = inter / union if union > 0 else 0.0
+            if v >= best:
+                best, bj = v, j
+        if bj is not None:
+            used.add(bj)
+            pairs.append((i, bj))
+    return pairs, len(ia) + len(ib) - 2 * len(pairs)
+
+
+def compare_outputs(torch, a, b):
+    """Two PipelineOutputs of the same frames: faces paired by IoU per
+    frame; (faces a, faces b, one-sided, match_idx agreement over the
+    pairs, min embedding cosine over the pairs)."""
+    ba, va, ea, ma = (t.float().cpu().numpy() if t.is_floating_point()
+                      else t.cpu().numpy()
+                      for t in (a.boxes, a.valid, a.embeddings, a.match_idx))
+    bb, vb, eb, mb = (t.float().cpu().numpy() if t.is_floating_point()
+                      else t.cpu().numpy()
+                      for t in (b.boxes, b.valid, b.embeddings, b.match_idx))
+    lone, same, n, cos = 0, 0, 0, 1.0
+    for f in range(len(va)):
+        pairs, k = iou_pairs(ba[f], va[f], bb[f], vb[f])
+        lone += k
+        for i, j in pairs:
+            n += 1
+            same += int(ma[f, i] == mb[f, j])
+            x, y = ea[f, i], eb[f, j]
+            cos = min(cos, float(x @ y / (np.linalg.norm(x)
+                                          * np.linalg.norm(y))))
+    return dict(faces_a=int(va.sum()), faces_b=int(vb.sum()), lone=lone,
+                pairs=n, match_agree=same / max(n, 1), min_cos=cos)
+
+
+def check_output(torch, o, nb, max_num, what):
+    """Finite unit-norm embeddings on valid slots, zeros elsewhere."""
+    if o.embeddings.shape != (nb, max_num, 512):
+        fail(f"{what}: embeddings shape {tuple(o.embeddings.shape)}")
+    ev = o.embeddings[o.valid].float()
+    if not bool(torch.isfinite(ev).all()) or not bool(
+            ((ev.norm(dim=-1) - 1).abs() < 1e-3).all()):
+        fail(f"{what}: valid embeddings not finite and unit-norm")
+    if not bool((o.embeddings[~o.valid] == 0).all()):
+        fail(f"{what}: invalid slots carry embeddings")
+
+
+def stream_fps(torch, pipe, batches, depth, max_num, rounds):
+    """Frames a second of ``process_stream(batches, depth)``, one number a
+    round (host clock, the card synchronized at both ends)."""
+    out = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = 0
+        for o in pipe.process_stream(iter(batches), max_num=max_num,
+                                     depth=depth):
+            n += o.boxes.shape[0]
+        torch.cuda.synchronize()
+        out.append(n / (time.perf_counter() - t))
+    return out
+
+
+@contextlib.contextmanager
+def plain_copy(pipe):
+    """``pipe`` copies numpy batches to its device as ``as_frames`` does
+    (pageable memory, on the compute stream), not through its staging."""
+    from scrfd_arcface_facerecognition_tpu_torch.pipeline.detector import (
+        as_frames)
+
+    staging = pipe._staging
+    pipe._staging = lambda frames: as_frames(frames, pipe.device)
+    try:
+        yield
+    finally:
+        pipe._staging = staging
+
+
+def fps_said(fps):
+    s = sorted(fps)
+    return (f"median {s[len(s) // 2]:.2f} (spread {s[0]:.2f}-{s[-1]:.2f}, "
+            f"{len(s)} rounds)")
+
+
+def device_busy(torch, fn):
+    """fn() under torch.profiler: the device's busy share (the union of
+    its kernels' and copies' intervals over the window from the first
+    device event to the last), the host's ms, and the six device events
+    (by name) that took the most time. None where the trace holds no
+    device event (and on the CPU)."""
+    if DEV != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1e3
+    # the device's own events: kernels, copies and sets (the runtime's
+    # "Command Buffer Full" waits are host-side, though tagged CUDA)
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.name.startswith("Command Buffer")]
+    if not dev:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, (lo, hi) = 0.0, spans[0]
+    first, last = spans[0][0], max(e for _, e in spans)
+    for s0, e0 in spans[1:]:
+        if s0 > hi:
+            busy += hi - lo
+            lo, hi = s0, e0
+        else:
+            hi = max(hi, e0)
+    busy += hi - lo
+    window = max(last - first, 1e-9)
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + (e.time_range.end - e.time_range.start) / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(busy_share=busy / window, device_window_ms=window / 1e3,
+                host_ms=host_ms, top=top)
+
+
+def busy_said(b):
+    if b is None:
+        return "not measured (no device events in the trace)"
+    window = b["device_window_ms"]
+    return (f"device busy {b['busy_share']:.4f} of its {window:.1f} ms "
+            f"window (host {b['host_ms']:.1f} ms; the device events that "
+            f"took longest: "
+            + ", ".join(f"{k[:60]} {v:.1f} ms" for k, v in b["top"]) + ")")
+
+
+def phase_bf16_bench(torch, rep):
+    """The stand-in main path at bf16 at bench.py's settings: frames
+    resident on the card, process_stream at depth 12 (and 1, 2), frames
+    fed from numpy at depth 1, 2, 12; stage splits at bf16 and f32; bf16
+    against f32 on the same frames; K1 on the path's inputs."""
+    from scrfd_arcface_facerecognition_tpu_torch import FacePipeline, stages
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    c = BENCH
+    t0 = time.perf_counter()
+    nb, (h, w), max_num, ng = c["frames"], c["hw"], c["max_num"], c["gallery"]
+    det_kw = dict(conf_thres=c["conf"], pre_nms=c["pre_nms"],
+                  max_det=c["max_det"])
+    rng = np.random.default_rng(0)
+    gallery = rng.normal(size=(ng, 512)).astype(np.float32)
+    pipes = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        det, emb = standin_parts(torch, dtype, **det_kw)
+        pipes[name] = FacePipeline(detector=det, embedder=emb,
+                                   gallery_capacity=ng, device=DEV)
+        pipes[name].set_gallery(gallery, [f"p{i}" for i in range(ng)])
+    pipe = pipes["bf16"]
+    host = rng.integers(0, 255, (nb, h, w, 3), dtype=np.uint8)
+    frames = torch.from_numpy(host).to(DEV)
+    with k1_capture() as k1_calls:                 # warm-up, K1's inputs
+        for _ in range(2):
+            pipe(frames, max_num=max_num)
+        for _ in pipe.process_stream([frames] * 2, max_num=max_num):
+            pass
+    pipes["f32"](frames, max_num=max_num)          # the f32 one's warm-up
+    torch.cuda.synchronize()
+    rep.say(f"bf16 bench path: stand-in det_10g + w600k_r50 at bf16 "
+            f"(weights f32, rounded once), {nb}x{h}x{w} frames on the card, "
+            f"gallery {ng}, max_det {c['max_det']}, max_num {max_num}, "
+            f"pre_nms {c['pre_nms']}, conf {c['conf']}; set-up + warm-up "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    # the path: frames resident, depth 12 (bench.py's), counted
+    wa.launches = 0
+    fps = stream_fps(torch, pipe, [frames] * c["depth"], c["depth"],
+                     max_num, c["rounds"])
+    launches = wa.launches
+    if launches <= 0:
+        fail("bf16 bench path launched K1 no time")
+    by_depth = {c["depth"]: fps}
+    for d in c["depths"]:
+        by_depth[d] = stream_fps(torch, pipe, [frames] * c["depth"], d,
+                                 max_num, c["rounds"])
+    rep.say(f"bf16 bench path: frames/s, {c['depth']} batches of {nb} "
+            f"resident frames a round: " + "; ".join(
+                f"depth {d} {fps_said(v)}" for d, v in sorted(
+                    by_depth.items())) + f"; K1 launches {launches}")
+    # numpy-fed, through the pinned staging and through the plain pageable
+    # copy it replaces, alternating at each depth
+    fed, fed_plain = {}, {}
+    for d in c["fed_depths"]:
+        fed[d] = stream_fps(torch, pipe, [host] * c["depth"], d, max_num,
+                            c["rounds"])
+        with plain_copy(pipe):
+            fed_plain[d] = stream_fps(torch, pipe, [host] * c["depth"], d,
+                                      max_num, c["rounds"])
+    # the staged batches are the frames: two alternating numpy batches,
+    # more in flight than the pinned ring has buffers, against the
+    # resident frames' direct calls
+    flipped = np.ascontiguousarray(host[::-1])
+    want = [pipe(frames, max_num=max_num),
+            pipe(frames.flip(0).contiguous(), max_num=max_num)]
+    for i, o in enumerate(pipe.process_stream(
+            [host, flipped] * 3, max_num=max_num, depth=4)):
+        w = want[i % 2]
+        if not all(torch.equal(getattr(o, f), getattr(w, f))
+                   for f in ("valid", "count", "match_idx", "boxes")):
+            fail(f"bf16 bench path: numpy-fed batch {i} differs from the "
+                 f"resident frames' call")
+    rep.say(f"bf16 bench path, frames fed from numpy (pinned staging): "
+            + "; ".join(f"depth {d} {fps_said(v)}"
+                        for d, v in sorted(fed.items()))
+            + "; through the plain pageable copy instead: "
+            + "; ".join(f"depth {d} {fps_said(v)}"
+                        for d, v in sorted(fed_plain.items()))
+            + "; 6 staged batches (depth 4) equal to the resident frames' "
+            "calls")
+    busy = {}
+    for name, src in (("resident", frames), ("numpy-fed", host)):
+        busy[name] = device_busy(torch, lambda: stream_fps(
+            torch, pipe, [src] * c["depth"], c["depth"], max_num, 1))
+    rep.say("bf16 bench path, one round at depth "
+            f"{c['depth']} under torch.profiler: " + "; ".join(
+                f"{k}: {busy_said(v)}" for k, v in busy.items()))
+
+    # one call of each precision, by stage
+    split = {}
+    for name in ("bf16", "f32"):
+        timer = StageTimer(torch)
+        stages.set_stage_hook(timer)
+        try:
+            out = pipes[name](frames, max_num=max_num)
+            split[name] = timer.totals()
+        finally:
+            stages.set_stage_hook(None)
+        check_output(torch, out, nb, max_num, f"bf16 bench path ({name})")
+        split[name + "_out"] = out
+    rep.say("bf16 bench path, one call by stage (device ms): " + "; ".join(
+        f"{name} " + ", ".join(f"{k} {split[name].get(k, 0.0):.3f}"
+                               for k in stages.STAGES)
+        for name in ("bf16", "f32")))
+    # the stand-ins score every anchor alike, so bf16's rounding reorders
+    # which max_num faces a frame keeps: the pairs are held, not their count
+    cmp = compare_outputs(torch, split["bf16_out"], split["f32_out"])
+    if (abs(cmp["faces_a"] - cmp["faces_b"]) > 0.01 * cmp["faces_b"]
+            or not cmp["pairs"]
+            or cmp["min_cos"] < 0.99 or cmp["match_agree"] < 0.99):
+        fail(f"bf16 bench path: bf16 and f32 disagree: {cmp}")
+    rep.say(f"bf16 bench path, bf16 vs f32 on the same {nb} frames: faces "
+            f"{cmp['faces_a']} / {cmp['faces_b']}, paired by IoU >= 0.9 "
+            f"{cmp['pairs']}, on one side only {cmp['lone']}, match_idx "
+            f"agreement over the pairs {cmp['match_agree']:.4f}, min "
+            f"embedding cosine over the pairs {cmp['min_cos']:.5f}")
+    faces = int(split["bf16_out"].valid.sum())
+    err, what = k1_on_path(torch, wa, k1_calls)
+    rep.say(f"bf16 bench path: K1 vs plain on the path's inputs, {what}: "
+            f"max abs err {err:.6g} u8 (tolerance {TOL_U8})")
+    s = sorted(fps)
+    bench = {"frames_per_sec": s[len(s) // 2], "spread": [s[0], s[-1]],
+             "rounds": c["rounds"], "depth": c["depth"],
+             "batch": nb, "faces_in_batch": faces,
+             "by_depth": {str(d): sorted(v)[len(v) // 2]
+                          for d, v in sorted(by_depth.items())},
+             "numpy_fed_by_depth": {str(d): sorted(v)[len(v) // 2]
+                                    for d, v in sorted(fed.items())},
+             "numpy_fed_plain_copy_by_depth": {
+                 str(d): sorted(v)[len(v) // 2]
+                 for d, v in sorted(fed_plain.items())},
+             "dtype": "bfloat16", "weights": "stand-ins (tests/torch_export.py)",
+             "device_busy_share": {k: (v or {}).get("busy_share")
+                                   for k, v in busy.items()},
+             "card": rep.card}
+    print(json.dumps({"bench_bf16": bench}), flush=True)
+    return dict(launches=launches, err=err, fps=fps, bench=bench)
+
+
+# ---------------------------------------------------------------------
+# phase 13b: the bf16 path on the trained checkpoints, card against CPU
+#
+# The stand-ins score every anchor alike, so phase 13 cannot tell a wrong
+# bf16 detector on the card from a right one. Here the committed trained
+# det_500m + w600k_mbf run at bf16 on the card and on the CPU (whose bf16
+# path tests/test_torch_bf16.py holds to the JAX package), at that test's
+# budget (bf16 ulps: 2^(floor(log2 x) - 7)).
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 values at magnitude ``x`` (8 significant bits)."""
+    x = abs(float(x))
+    if x == 0 or not np.isfinite(x):
+        return 0.0
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+def score_tol(s, logit_max):
+    """2 ulps of the logits (at their largest magnitude) through the
+    sigmoid's slope, plus 2 ulps of the score's own rounding."""
+    s = np.asarray(s, np.float64)
+    return (2 * bf16_ulp(logit_max) * s * (1 - s)
+            + 2 * np.vectorize(bf16_ulp)(s))
+
+
+def smooth_frames(torch, rng, n, h, w):
+    """Seeded smooth content (upsampled noise), in which the trained
+    detector finds faces at a low threshold; made on the CPU."""
+    base = rng.integers(0, 255, (n, 3, max(2, h // 20), max(2, w // 20)))
+    up = torch.nn.functional.interpolate(
+        torch.from_numpy(base.astype(np.float32)), size=(h, w),
+        mode="bilinear", align_corners=False)
+    return up.clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous(
+        ).numpy()
+
+
+def checkpoint_pipe(torch, dtype, device):
+    """FacePipeline on the committed det_500m + w600k_mbf (``CKPT``'s
+    detector settings, tight canvas) at ``dtype`` on ``device``."""
+    from scrfd_arcface_facerecognition_tpu_torch import FacePipeline
+    from scrfd_arcface_facerecognition_tpu_torch.models import (
+        read_flax_msgpack)
+    from scrfd_arcface_facerecognition_tpu_torch.pipeline import (
+        Detector, Embedder)
+
+    c = CKPT
+    if not _CKPT_TREES:
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "checkpoints", "decisions")
+        for part in ("det", "rec"):
+            with open(os.path.join(root, c[part] + ".msgpack"), "rb") as f:
+                _CKPT_TREES[part] = read_flax_msgpack(f.read())
+    det = Detector(c["det"], variables=_CKPT_TREES["det"],
+                   input_size=c["input_size"], conf_thres=c["conf"],
+                   pre_nms=c["pre_nms"], max_det=c["max_det"], dtype=dtype,
+                   device=device)
+    emb = Embedder(c["rec"], variables=_CKPT_TREES["rec"], dtype=dtype,
+                   device=device)
+    return FacePipeline(detector=det, embedder=emb, tight_canvas=True,
+                        similarity_thresh=c["sim"], gallery_capacity=16,
+                        device=device)
+
+
+_CKPT_TREES = {}
+
+
+def box_iou(a, b):
+    x1, y1 = max(a[0], b[0]), max(a[1], b[1])
+    x2, y2 = min(a[2], b[2]), min(a[3], b[3])
+    inter = max(0.0, x2 - x1) * max(0.0, y2 - y1)
+    union = ((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1])
+             - inter)
+    return inter / union if union > 0 else 0.0
+
+
+def hold_bf16_faces(want, got, *, conf, cut, iou_thres, det_scale, where):
+    """One frame's faces, ``want`` (the reference) and ``got`` lists of
+    (box (4,), score, kps (5, 2)), paired by IoU >= 0.9 (best first) and
+    held to the bf16 budget: boxes and kps within 2 ulps of the box's
+    extent in canvas pixels over det_scale, scores within 2 ulps of 1. A
+    face on one side only must be a tie: its score within 2 ulps of
+    ``conf`` or of the slate's ``cut``, or an IoU within 0.05 of the NMS
+    threshold with a face of the other side. Returns (pairs [(i, j)],
+    faces on one side only)."""
+    pairs, used = [], set()
+    for i, (wb, _, _) in enumerate(want):
+        best, bj = 0.9, None
+        for j, (gb, _, _) in enumerate(got):
+            if j not in used and box_iou(wb, gb) >= best:
+                best, bj = box_iou(wb, gb), j
+        if bj is not None:
+            used.add(bj)
+            pairs.append((i, bj))
+    for i, j in pairs:
+        (wb, ws, wk), (gb, gs, gk) = want[i], got[j]
+        extent = max(wb[2] - wb[0], wb[3] - wb[1]) * det_scale
+        tol = 2 * bf16_ulp(extent) / det_scale
+        d = max(float(np.abs(gb - wb).max()), float(np.abs(gk - wk).max()))
+        if d > tol or abs(gs - ws) > 2 * bf16_ulp(1.0):
+            fail(f"bf16 checkpoints, {where}: a face's box / kps {d} px "
+                 f"apart (budget {tol}) or scores {gs} / {ws}")
+    near = lambda v, edge: abs(float(v) - float(edge)) <= 2 * bf16_ulp(edge)
+    lone = ([(f, got) for i, f in enumerate(want)
+             if i not in {a for a, _ in pairs}]
+            + [(f, want) for j, f in enumerate(got)
+               if j not in {b for _, b in pairs}])
+    for (box, score, _), other in lone:
+        if not (near(score, conf) or near(score, cut) or any(
+                abs(box_iou(box, ob) - iou_thres) <= 0.05
+                for ob, _, _ in other)):
+            fail(f"bf16 checkpoints, {where}: a face on one side only is "
+                 f"no tie (score {score}, conf {conf}, cut {cut})")
+    return pairs, len(lone)
+
+
+def phase_bf16_checkpoints(torch, rep):
+    """13b: the trained checkpoints at bf16, card against CPU: the raw
+    head outputs on one canvas (and the card's bf16 against its f32, which
+    must differ: a forward that stays f32 fails), then the pipeline's
+    outputs end to end."""
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+
+    c = CKPT
+    n, h, w = c["frames"]
+    frames = smooth_frames(torch, np.random.default_rng(131), n, h, w)
+    cpu = checkpoint_pipe(torch, torch.bfloat16, "cpu")
+    card = checkpoint_pipe(torch, torch.bfloat16, DEV)
+    card32 = checkpoint_pipe(torch, torch.float32, DEV)
+
+    # the pipeline's canvas, made on the CPU, through each detector
+    plan = ops.tight_letterbox_plan((h, w), cpu.detector.input_size)
+    canvas = ops.letterbox(torch.from_numpy(frames), plan,
+                           dtype=torch.bfloat16)
+    net_in = ops.normalize_image(canvas, ops.SCRFD_MEAN, ops.SCRFD_STD
+                                 ).permute(0, 3, 1, 2).contiguous()
+    with torch.inference_mode():
+        want = cpu.detector.model(net_in)
+        got = card.detector.model(net_in.to(DEV))
+        hi = card32.detector.model(net_in.to(DEV))
+    used, apart = {}, {}
+    for key in ("scores", "bboxes", "kps"):
+        gap, mag = 0.0, 0.0
+        for li, (g, ref, f) in enumerate(zip(got[key], want[key], hi[key])):
+            g, ref, f = (t.float().cpu().numpy() for t in (g, ref, f))
+            if key == "scores":
+                rs = np.clip(ref.astype(np.float64), 1e-12, 1 - 1e-12)
+                tol = score_tol(ref, np.abs(np.log(rs / (1 - rs))).max())
+            else:
+                tol = 2 * bf16_ulp(np.abs(ref).max())
+            err = np.abs(g - ref)
+            if not (err <= tol).all():
+                fail(f"bf16 checkpoints: the card's {key} (level {li}) "
+                     f"{float(err.max())} from the CPU's, past the bf16 "
+                     f"budget")
+            used[key] = max(used.get(key, 0.0), float((err / tol).max()))
+            gap = max(gap, float(np.abs(g - f).max()))
+            mag = max(mag, float(np.abs(f).max()))
+        apart[key] = gap / bf16_ulp(mag)
+        if apart[key] < 0.5:
+            fail(f"bf16 checkpoints: the card's bf16 {key} only "
+                 f"{apart[key]:.3f} ulps from its f32: the forward did not "
+                 f"round to bf16")
+    scores = torch.cat([s[..., 0] for s in want["scores"]], dim=1)
+    cuts = ops.stable_top_k(scores, c["pre_nms"])[0][:, -1].numpy()
+
+    # end to end, with a gallery of the CPU's first faces
+    first = cpu(frames)
+    gal = first.embeddings.numpy()[first.valid.numpy()][:6]
+    if not len(gal):
+        fail("bf16 checkpoints: no face on the CPU")
+    for p in (cpu, card):
+        p.set_gallery(gal, [f"g{i}" for i in range(len(gal))])
+    ref = [t.float().numpy() if t.is_floating_point() else t.numpy()
+           for t in cpu(frames)]
+    out = [t.float().cpu().numpy() if t.is_floating_point() else t.cpu().numpy()
+           for t in card(frames)]
+    jb, js, jk, jv, _, je, ji, jm = ref
+    tb, ts, tk, tv, _, te, ti, tm = out
+    lone, npairs, cos, held = 0, 0, 1.0, 0
+    for b in range(n):
+        wl = [(jb[b, k], float(js[b, k]), jk[b, k]) for k in range(len(jv[b]))
+              if jv[b, k]]
+        gl = [(tb[b, k], float(ts[b, k]), tk[b, k]) for k in range(len(tv[b]))
+              if tv[b, k]]
+        pairs, k = hold_bf16_faces(wl, gl, conf=c["conf"],
+                                   cut=float(cuts[b]),
+                                   iou_thres=card.detector.iou_thres,
+                                   det_scale=plan.det_scale,
+                                   where=f"frame {b}")
+        lone += k
+        npairs += len(pairs)
+        wk, gk = np.flatnonzero(jv[b]), np.flatnonzero(tv[b])
+        for i, j in pairs:
+            x, y = je[b, wk[i]], te[b, gk[j]]
+            cos = min(cos, float(x @ y / (np.linalg.norm(x)
+                                          * np.linalg.norm(y))))
+            ws, gs = jm[b, wk[i]], tm[b, gk[j]]
+            if not (abs(ws - c["sim"]) <= 2 * bf16_ulp(c["sim"])
+                    or abs(gs - c["sim"]) <= 2 * bf16_ulp(c["sim"])):
+                held += 1
+                if ji[b, wk[i]] != ti[b, gk[j]]:
+                    fail(f"bf16 checkpoints, frame {b}: match_idx "
+                         f"{ti[b, gk[j]]} on the card, {ji[b, wk[i]]} on "
+                         f"the CPU (match_sim {gs} / {ws})")
+    if cos < 0.999 or lone > c["max_ties"] or not npairs:
+        fail(f"bf16 checkpoints: {npairs} faces paired, {lone} on one side "
+             f"only (at most {c['max_ties']}), min embedding cosine {cos}")
+    rep.say(f"bf16 checkpoints ({c['det']} + {c['rec']}, bf16, "
+            f"{n}x{h}x{w} smooth seeded frames, det_size "
+            f"{c['input_size']}, conf {c['conf']}), card vs CPU: head "
+            f"outputs on one canvas within the 2-ulp budget (the largest "
+            f"error a share of it: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in used.items())
+            + "); the card's bf16 from its f32: " + ", ".join(
+                f"{k} {v:.2f} ulps" for k, v in apart.items())
+            + f"; end to end: faces {int(jv.sum())} / {int(tv.sum())}, "
+            f"paired by IoU >= 0.9 {npairs}, on one side only (ties) "
+            f"{lone}, boxes / kps / scores within budget, min embedding "
+            f"cosine {cos:.6f}, match_idx equal on {held} faces away from "
+            f"the threshold")
+    return dict(pairs=npairs, lone=lone, used=used, apart=apart, cos=cos)
+
+
+# ---------------------------------------------------------------------
+# phase 14: the realtime app
+
+
+class SyntheticCapture:
+    """A cv2-shaped capture of ``n`` seeded frames (read, get, isOpened,
+    release), made when it opens; each read hands out a new copy, as a
+    decoder does, and keeps its checksum."""
+
+    def __init__(self, n, h, w, fps=25.0, seed=14):
+        self.n, self.h, self.w, self.fps = n, h, w, fps
+        rng = np.random.default_rng(seed)
+        self.frames = [rng.integers(0, 255, (h, w, 3), np.uint8)
+                       for _ in range(n)]
+        self.sums = []
+        self.released = False
+
+    def read(self):
+        if len(self.sums) >= self.n:
+            return False, None
+        frame = self.frames[len(self.sums)].copy()
+        self.sums.append(frame_sum(frame))
+        return True, frame
+
+    def get(self, prop):
+        return {3: float(self.w), 4: float(self.h), 5: self.fps}.get(prop, 0.0)
+
+    def isOpened(self):
+        return not self.released
+
+    def release(self):
+        self.released = True
+
+
+def frame_sum(frame):
+    import zlib
+
+    return zlib.crc32(np.ascontiguousarray(frame).tobytes())
+
+
+class RecordingWriter:
+    def __init__(self):
+        self.sums = []
+        self.released = False
+
+    def write(self, frame):
+        self.sums.append(frame_sum(frame))
+
+    def release(self):
+        self.released = True
+
+
+def phase_realtime(torch, rep):
+    """``realtime.run`` on a synthetic capture through the native ring, the
+    stand-ins at bf16; every frame written in order, each batch equal to a
+    direct call, K1 on the run's inputs; frames/s with the decode thread,
+    and numpy-fed process_stream at depth 1 and 2."""
+    import tempfile
+
+    from scrfd_arcface_facerecognition_tpu_torch import FacePipeline
+    from scrfd_arcface_facerecognition_tpu_torch.apps import realtime
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.runtime import (
+        native_available)
+
+    c = REALTIME
+    n, (h, w), batch = c["frames"], c["hw"], c["batch"]
+    made, seen = {}, []
+
+    def factory(**kw):
+        if kw.get("dtype") != torch.bfloat16 or kw.get("device") != DEV:
+            fail(f"realtime: pipeline asked for {kw}")
+        det, emb = standin_parts(torch, torch.bfloat16,
+                               conf_thres=kw["conf_thres"],
+                               pre_nms=c["pre_nms"], max_det=c["max_det"])
+        made["pipe"] = FacePipeline(detector=det, embedder=emb,
+                                    similarity_thresh=kw["similarity_thresh"],
+                                    device=DEV)
+        return made["pipe"]
+
+    cap = SyntheticCapture(n, h, w)
+    writer = RecordingWriter()
+
+    def annotate(frames, out, names, colors):
+        seen.append((frames.copy(), out, time.perf_counter()))
+
+    saved = {k: getattr(realtime, k) for k in (
+        "FacePipeline", "open_capture", "open_writer", "annotate_batch",
+        "read_image")}
+    realtime.FacePipeline = factory
+    realtime.open_capture = lambda source: cap
+    realtime.open_writer = lambda path, fps, size: writer
+    realtime.annotate_batch = annotate
+    realtime.read_image = lambda path: np.load(path)
+    frng = np.random.default_rng(15)
+    try:
+        with tempfile.TemporaryDirectory() as tmp, k1_capture() as k1_calls:
+            faces = os.path.join(tmp, "faces")
+            os.makedirs(faces)
+            for i in range(c["faces"]):
+                np.save(os.path.join(faces, f"person{i}.npy"),
+                        frng.integers(0, 255, (240, 240, 3), np.uint8))
+            args = realtime.parse_args([
+                "--source", "synthetic", "--faces-dir", faces,
+                "--batch", str(batch), "--output", os.path.join(tmp, "o.mp4"),
+                "--det-weight", os.path.join(tmp, "det_10g.onnx"),
+                "--rec-weight", os.path.join(tmp, "w600k_r50.onnx"),
+                "--log-level", "WARNING"])
+            wa.launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = realtime.run(args, device=DEV)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t
+            launches = wa.launches
+    finally:
+        for k, v in saved.items():
+            setattr(realtime, k, v)
+    pipe = made["pipe"]
+    # steady state: from the first batch's annotation to the last's
+    steady = (sum(len(f) for f, _, _ in seen[1:])
+              / max(seen[-1][2] - seen[0][2], 1e-9))
+    seen = [(f, o) for f, o, _ in seen]
+    sizes = [len(f) for f, _ in seen]
+    want_sizes = [batch] * (n // batch) + ([n % batch] if n % batch else [])
+    if (res["frames"] != n or writer.sums != cap.sums or sizes != want_sizes
+            or not cap.released or not writer.released):
+        fail(f"realtime: {res['frames']} of {n} frames, batches {sizes}, "
+             f"written in order {writer.sums == cap.sums}")
+    if launches <= 0:
+        fail("realtime path launched K1 no time")
+    worst_cos, faces = 1.0, 0
+    for i, (frames, out) in enumerate(seen):
+        check_output(torch, out, len(frames), out.valid.shape[1],
+                     f"realtime batch {i}")
+        want = pipe(frames)
+        for name in ("count", "valid", "match_idx"):
+            if not torch.equal(getattr(out, name), getattr(want, name)):
+                fail(f"realtime batch {i}: {name} differs from a direct call")
+        a, b = out.embeddings[out.valid], want.embeddings[want.valid]
+        if len(a):
+            cos = float(((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1)))
+                        .min())
+            worst_cos = min(worst_cos, cos)
+        faces += int(out.valid.sum())
+    if worst_cos < 0.999:
+        fail(f"realtime: embeddings differ from a direct call, cos "
+             f"{worst_cos}")
+    err, what = k1_on_path(torch, wa, k1_calls)
+    rep.say(f"realtime: run() on a synthetic {n}-frame {h}x{w} capture "
+            f"through BatchedFrameReader (native ring: "
+            f"{native_available()}), batch {batch} ({sizes}), stand-ins at "
+            f"bf16, {res['targets']} targets from the faces directory: "
+            f"{steady:.2f} frames/s with the decode thread overlapping "
+            f"(from the first batch's annotation to the last; the whole "
+            f"run {run_s:.2f} s, {n / run_s:.2f} frames/s with the "
+            f"pipeline's set-up and the gallery); every frame written in "
+            f"order; {faces} faces; each batch's count / valid / match_idx "
+            f"equal to a direct call, min embedding cosine {worst_cos:.6f}; "
+            f"K1 launches {launches}; K1 vs plain on the run's inputs, "
+            f"{what}: max abs err {err:.6g} u8")
+    batches = [f for f, _ in seen]
+    fed, fed_plain = {}, {}
+    for d in (1, 2):
+        fed[d] = stream_fps(torch, pipe, batches, d, 0, c["rounds"])
+        with plain_copy(pipe):
+            fed_plain[d] = stream_fps(torch, pipe, batches, d, 0,
+                                      c["rounds"])
+    rep.say(f"realtime: numpy-fed process_stream over the {len(batches)} "
+            f"batches: " + "; ".join(f"depth {d} {fps_said(v)} frames/s"
+                                     for d, v in fed.items())
+            + "; through the plain pageable copy instead: " + "; ".join(
+                f"depth {d} {fps_said(v)} frames/s"
+                for d, v in fed_plain.items()))
+    busy = device_busy(torch, lambda: stream_fps(torch, pipe, batches, 2, 0,
+                                                 1))
+    rep.say(f"realtime: one numpy-fed round at depth 2 under "
+            f"torch.profiler: {busy_said(busy)}")
+    return dict(launches=launches, err=err, fps=steady)
+
+
 def main():
     import torch
 
@@ -2176,14 +2986,20 @@ def main():
     eng_pq = phase_engine_pq(torch, rep)
     phase_verification(torch, rep, app)
 
-    # 13. kernels
+    # 13. the bf16 main path at bench.py's settings; 14. the realtime app
+    bf = phase_bf16_bench(torch, rep)
+    phase_bf16_checkpoints(torch, rep)
+    rt = phase_realtime(torch, rep)
+
+    # 15. kernels
     t2 = gal["times"]
     kernels = [{
         "name": wa.NAME, "route": "cuda",
         "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/warp_align.cu",
         "replaces": "scrfd_arcface_facerecognition_tpu/ops/pallas_warp.py:430",
-        "launches": launches,
-        "max_abs_err": max(err3, err4, sp["err1"], fa["err"], eng["err"]),
+        "launches": launches + bf["launches"] + rt["launches"],
+        "max_abs_err": max(err3, err4, sp["err1"], fa["err"], eng["err"],
+                           bf["err"], rt["err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     }, {

@@ -1,5 +1,6 @@
 """PyTorch model definitions: the SCRFD detector family and the ArcFace
-embedders (NCHW, float32), seeded init and the Flax weights carrier."""
+embedders (NCHW; float32 parameters, a float32 or bfloat16 compute dtype),
+seeded init and the Flax weights carrier."""
 
 from .layers import PReLU, ConvBN
 from .arcface import (ArcFaceConfig, IResNet, MobileFaceNet, ARCFACE_CONFIGS,
@@ -7,7 +8,8 @@ from .arcface import (ArcFaceConfig, IResNet, MobileFaceNet, ARCFACE_CONFIGS,
 from .scrfd import (SCRFDConfig, SCRFDNet, SCRFD_CONFIGS, build_scrfd,
                     s2d_kernel_to_stem)
 from .init_utils import seeded_init_
-from .weights import load_flax_variables, state_dict_from_flax
+from .weights import (load_flax_variables, read_flax_msgpack,
+                      state_dict_from_flax)
 
 __all__ = [
     "PReLU", "ConvBN",
@@ -15,5 +17,6 @@ __all__ = [
     "arcface_from_config", "build_arcface",
     "SCRFDConfig", "SCRFDNet", "SCRFD_CONFIGS", "build_scrfd",
     "s2d_kernel_to_stem",
-    "seeded_init_", "load_flax_variables", "state_dict_from_flax",
+    "seeded_init_", "load_flax_variables", "read_flax_msgpack",
+    "state_dict_from_flax",
 ]

@@ -5,7 +5,9 @@ Contract of the released graphs: 112x112 input normalized (x-127.5)/127.5
 RGB, one 512-d output. Input is NCHW. The embedding head flattens the last
 feature map in NHWC order, as the reference does, so the FC weight carries
 over from the Flax tree as a plain transpose. Submodule names follow the
-JAX package's Flax names.
+JAX package's Flax names. ``dtype`` is the compute dtype
+(``layers.set_compute_dtype``); parameters stay float32 and the embedding
+leaves the model as float32, as the JAX models cast it.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from typing import Any, Sequence, Tuple
 import torch
 from torch import nn
 
-from .layers import ConvBN, PReLU
+from .layers import (BatchNorm1d, BatchNorm2d, Conv2d, ConvBN, Linear, PReLU,
+                     set_compute_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,17 +62,17 @@ class IBasicBlock(nn.Module):
 
     def __init__(self, in_ch: int, filters: int, stride: int):
         super().__init__()
-        self.bn1 = nn.BatchNorm2d(in_ch, eps=1e-5)
-        self.conv1 = nn.Conv2d(in_ch, filters, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(filters, eps=1e-5)
+        self.bn1 = BatchNorm2d(in_ch, eps=1e-5)
+        self.conv1 = Conv2d(in_ch, filters, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm2d(filters, eps=1e-5)
         self.prelu = PReLU(filters)
-        self.conv2 = nn.Conv2d(filters, filters, 3, stride=stride, padding=1,
-                               bias=False)
-        self.bn3 = nn.BatchNorm2d(filters, eps=1e-5)
+        self.conv2 = Conv2d(filters, filters, 3, stride=stride, padding=1,
+                            bias=False)
+        self.bn3 = BatchNorm2d(filters, eps=1e-5)
         if stride != 1 or in_ch != filters:
-            self.down_conv = nn.Conv2d(in_ch, filters, 1, stride=stride,
-                                       bias=False)
-            self.down_bn = nn.BatchNorm2d(filters, eps=1e-5)
+            self.down_conv = Conv2d(in_ch, filters, 1, stride=stride,
+                                    bias=False)
+            self.down_bn = BatchNorm2d(filters, eps=1e-5)
         else:
             self.down_conv = None
 
@@ -86,12 +89,13 @@ class IBasicBlock(nn.Module):
 class IResNet(nn.Module):
     """iResNet trunk + ArcFace embedding head (BN -> flatten -> FC -> BN)."""
 
-    def __init__(self, config: ArcFaceConfig):
+    def __init__(self, config: ArcFaceConfig,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = self.config = config
         c0 = cfg.stage_filters[0]
-        self.stem_conv = nn.Conv2d(3, c0, 3, padding=1, bias=False)
-        self.stem_bn = nn.BatchNorm2d(c0, eps=1e-5)
+        self.stem_conv = Conv2d(3, c0, 3, padding=1, bias=False)
+        self.stem_bn = BatchNorm2d(c0, eps=1e-5)
         self.stem_prelu = PReLU(c0)
         self.blocks = []
         ch = c0
@@ -104,16 +108,17 @@ class IResNet(nn.Module):
                 self.blocks.append(name)
                 ch = filters
         side = cfg.input_size[0] // 2 ** len(cfg.stage_blocks)
-        self.head_bn = nn.BatchNorm2d(ch, eps=1e-5)
-        self.fc = nn.Linear(ch * side * side, cfg.emb_dim)
-        self.features_bn = nn.BatchNorm1d(cfg.emb_dim, eps=1e-5)
+        self.head_bn = BatchNorm2d(ch, eps=1e-5)
+        self.fc = Linear(ch * side * side, cfg.emb_dim)
+        self.features_bn = BatchNorm1d(cfg.emb_dim, eps=1e-5)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem_prelu(self.stem_bn(self.stem_conv(x)))
         for name in self.blocks:
             x = getattr(self, name)(x)
         x = _flatten_nhwc(self.head_bn(x))
-        return self.features_bn(self.fc(x))
+        return self.features_bn(self.fc(x)).float()
 
 
 class MBFDepthWise(nn.Module):
@@ -136,7 +141,8 @@ class MBFDepthWise(nn.Module):
 class MobileFaceNet(nn.Module):
     """MobileFaceNet (w600k_mbf: blocks (1, 4, 6, 2), scale 2, GDC head)."""
 
-    def __init__(self, config: ArcFaceConfig):
+    def __init__(self, config: ArcFaceConfig,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = self.config = config
         w = cfg.mbf_widths()
@@ -168,15 +174,16 @@ class MobileFaceNet(nn.Module):
         self.conv_sep = ConvBN(ch, sep, 1, padding=0, act="prelu")
         gk = cfg.input_size[0] // 16
         self.gdc = ConvBN(sep, sep, gk, padding=0, groups=sep)
-        self.fc = nn.Linear(sep, cfg.emb_dim, bias=False)
-        self.features_bn = nn.BatchNorm1d(cfg.emb_dim, eps=1e-5)
+        self.fc = Linear(sep, cfg.emb_dim, bias=False)
+        self.features_bn = BatchNorm1d(cfg.emb_dim, eps=1e-5)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem(x)
         for name in self.blocks:
             x = getattr(self, name)(x)
         x = _flatten_nhwc(self.gdc(self.conv_sep(x)))
-        return self.features_bn(self.fc(x))
+        return self.features_bn(self.fc(x)).float()
 
 
 ARCFACE_CONFIGS = {
@@ -188,9 +195,11 @@ ARCFACE_CONFIGS = {
 }
 
 
-def arcface_from_config(cfg: ArcFaceConfig) -> nn.Module:
-    return IResNet(cfg) if cfg.arch == "iresnet" else MobileFaceNet(cfg)
+def arcface_from_config(cfg: ArcFaceConfig,
+                        dtype: torch.dtype = torch.float32) -> nn.Module:
+    return (IResNet(cfg, dtype) if cfg.arch == "iresnet"
+            else MobileFaceNet(cfg, dtype))
 
 
-def build_arcface(name: str) -> nn.Module:
-    return arcface_from_config(ARCFACE_CONFIGS[name])
+def build_arcface(name: str, dtype: torch.dtype = torch.float32) -> nn.Module:
+    return arcface_from_config(ARCFACE_CONFIGS[name], dtype)

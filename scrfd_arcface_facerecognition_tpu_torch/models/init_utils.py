@@ -13,7 +13,7 @@ import math
 import torch
 from torch import nn
 
-from .layers import PReLU
+from .layers import PReLU, set_compute_dtype
 from .scrfd import SCRFDHead
 
 
@@ -22,7 +22,8 @@ def seeded_init_(model: nn.Module, seed: int = 0) -> nn.Module:
     """Initialize ``model`` in place from ``seed``; returns it.
 
     Draws on the CPU (module order), so a seed gives the same weights on
-    every device: initialize before moving the model.
+    every device: initialize before moving the model. A model computing in
+    bfloat16 gets the new weights rounded again.
     """
     gen = torch.Generator(device="cpu").manual_seed(seed)
     for m in model.modules():
@@ -47,4 +48,4 @@ def seeded_init_(model: nn.Module, seed: int = 0) -> nn.Module:
             for name, p in m.named_parameters(recurse=False):
                 if name.startswith("scale"):
                     p.fill_(1.0)
-    return model
+    return set_compute_dtype(model)     # the new weights, rounded

@@ -12,6 +12,10 @@ names follow the JAX package's Flax names so the weights module maps one
 tree onto the other path for path. Only the plain 3x3 stride-2 stem is
 built: the space-to-depth stem is a TPU layout trick, and
 ``s2d_kernel_to_stem`` turns such a stem kernel back into the plain one.
+
+``dtype`` is the compute dtype (``layers.set_compute_dtype``); parameters
+stay float32 and the head's three outputs are float32 in either dtype, as
+the JAX head casts them.
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from .layers import ConvBN
+from .layers import (Conv2d, ConvBN, GroupNorm, RoundedWeights,
+                     set_compute_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,8 +176,8 @@ class GNConv(nn.Module):
 
     def __init__(self, in_ch: int, filters: int, groups: int = 16):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, filters, 3, padding=1)
-        self.gn = nn.GroupNorm(groups, filters, eps=1e-5)
+        self.conv = Conv2d(in_ch, filters, 3, padding=1)
+        self.gn = GroupNorm(groups, filters, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.gn(self.conv(x)))
@@ -183,12 +188,14 @@ def _flatten_nhwc(x: torch.Tensor, c: int) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1, c)
 
 
-class SCRFDHead(nn.Module):
+class SCRFDHead(RoundedWeights, nn.Module):
     """Anchor-free head shared across levels: a GroupNorm conv tower, then
-    cls / bbox / kps 3x3 convs, a learnable scale per level on the bbox."""
+    cls / bbox / kps 3x3 convs, a learnable scale per level on the bbox
+    (multiplied in the compute dtype). The outputs are float32."""
 
     def __init__(self, cfg: SCRFDConfig, in_ch: int):
         super().__init__()
+        self.rounded = tuple(f"scale{li}" for li in range(len(cfg.strides)))
         self.cfg = cfg
         self.n_tower = cfg.head_stacks
         for i in range(cfg.head_stacks):
@@ -196,10 +203,10 @@ class SCRFDHead(nn.Module):
                 in_ch if i == 0 else cfg.head_filters, cfg.head_filters,
                 cfg.gn_groups))
         a = cfg.num_anchors
-        self.cls = nn.Conv2d(cfg.head_filters, a, 3, padding=1)
-        self.box = nn.Conv2d(cfg.head_filters, a * 4, 3, padding=1)
-        self.kps = nn.Conv2d(cfg.head_filters, a * cfg.num_kps * 2, 3,
-                             padding=1)
+        self.cls = Conv2d(cfg.head_filters, a, 3, padding=1)
+        self.box = Conv2d(cfg.head_filters, a * 4, 3, padding=1)
+        self.kps = Conv2d(cfg.head_filters, a * cfg.num_kps * 2, 3,
+                          padding=1)
         for li in range(len(cfg.strides)):
             self.register_parameter(f"scale{li}",
                                     nn.Parameter(torch.ones(1)))
@@ -212,26 +219,29 @@ class SCRFDHead(nn.Module):
             t = x
             for i in range(self.n_tower):
                 t = getattr(self, f"tower{i}")(t)
-            scale = getattr(self, f"scale{li}")
-            scores.append(_flatten_nhwc(torch.sigmoid(self.cls(t)), 1))
-            bboxes.append(_flatten_nhwc(self.box(t) * scale, 4))
-            kpss.append(_flatten_nhwc(self.kps(t), nk))
+            scale = self.w(f"scale{li}")
+            scores.append(_flatten_nhwc(torch.sigmoid(self.cls(t)), 1).float())
+            bboxes.append(_flatten_nhwc(self.box(t) * scale, 4).float())
+            kpss.append(_flatten_nhwc(self.kps(t), nk).float())
         return {"scores": scores, "bboxes": bboxes, "kps": kpss}
 
 
 class SCRFDNet(nn.Module):
-    """Backbone -> PAFPN -> head. Input (B, 3, H, W) normalized RGB."""
+    """Backbone -> PAFPN -> head. Input (B, 3, H, W) normalized RGB, in
+    any float dtype (the first conv casts it to the compute dtype)."""
 
-    def __init__(self, config: SCRFDConfig):
+    def __init__(self, config: SCRFDConfig,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
         self.backbone = Backbone(config)
         self.neck = PAFPN(config.stage_filters[1:], config.neck_filters)
         self.head = SCRFDHead(config, config.neck_filters)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
         return self.head(self.neck(self.backbone(x)))
 
 
-def build_scrfd(name: str) -> SCRFDNet:
-    return SCRFDNet(SCRFD_CONFIGS[name])
+def build_scrfd(name: str, dtype: torch.dtype = torch.float32) -> SCRFDNet:
+    return SCRFDNet(SCRFD_CONFIGS[name], dtype=dtype)

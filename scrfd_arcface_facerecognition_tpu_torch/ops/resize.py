@@ -49,21 +49,27 @@ def _interp_matrix(dst_size: int, src_size: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _interp_matrix_on(dst_size: int, src_size: int,
-                      device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_interp_matrix(dst_size, src_size)).to(device)
+def _interp_matrix_on(dst_size: int, src_size: int, device: torch.device,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return torch.from_numpy(_interp_matrix(dst_size, src_size)).to(
+        device=device, dtype=dtype)
 
 
-def resize_bilinear(images: torch.Tensor,
-                    out_hw: Tuple[int, int]) -> torch.Tensor:
-    """(..., H, W, C) -> (..., h, w, C) float32, cv2 INTER_LINEAR semantics."""
+def resize_bilinear(images: torch.Tensor, out_hw: Tuple[int, int],
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(..., H, W, C) -> (..., h, w, C) float32, cv2 INTER_LINEAR semantics.
+
+    ``dtype`` is the two products' compute dtype: float32 for cv2 parity;
+    bfloat16 when the detector computes in it, as the JAX package's
+    letterbox does (at most one intensity step on the canvas).
+    """
     h_in, w_in = images.shape[-3], images.shape[-2]
     h_out, w_out = out_hw
-    wy = _interp_matrix_on(h_out, h_in, images.device)
-    wx = _interp_matrix_on(w_out, w_in, images.device)
-    x = images.to(torch.float32)
+    wy = _interp_matrix_on(h_out, h_in, images.device, dtype)
+    wx = _interp_matrix_on(w_out, w_in, images.device, dtype)
+    x = images.to(dtype)
     x = torch.einsum("oh,...hwc->...owc", wy, x)
-    return torch.einsum("pw,...owc->...opc", wx, x)
+    return torch.einsum("pw,...owc->...opc", wx, x).to(torch.float32)
 
 
 # ----------------------------------------------------------------------
@@ -240,17 +246,19 @@ def letterbox_dynamic(frames: torch.Tensor, wy: torch.Tensor,
 
 
 def letterbox(frames: torch.Tensor, plan: LetterboxPlan,
-              exact_u8: bool = False) -> torch.Tensor:
+              exact_u8: bool = False,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(..., H, W, C) frames -> (..., model_h, model_w, C) float32 canvas,
     resized content at the top-left, zero padding. ``exact_u8=True`` sends
-    uint8 frames through the bit-exact cv2 resize first."""
+    uint8 frames through the bit-exact cv2 resize first; ``dtype`` is the
+    resize's compute dtype (``resize_bilinear``)."""
     new_h, new_w = plan.new_hw
     mh, mw = plan.model_hw
     if exact_u8 and frames.dtype == torch.uint8:
         resized = resize_bilinear_u8_exact(
             frames, (new_h, new_w)).to(torch.float32)
     else:
-        resized = resize_bilinear(frames, (new_h, new_w))
+        resized = resize_bilinear(frames, (new_h, new_w), dtype=dtype)
     # F.pad pads from the last dim backwards: (C, W, H)
     return torch.nn.functional.pad(resized,
                                    (0, 0, 0, mw - new_w, 0, mh - new_h))

@@ -11,6 +11,8 @@ batched over every face.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -60,11 +62,17 @@ def umeyama_similarity(src: torch.Tensor, dst: torch.Tensor,
     return torch.stack([row0, row1], dim=-2)
 
 
+@functools.lru_cache(maxsize=8)
+def _template_on(device: torch.device) -> torch.Tensor:
+    """The template on ``device``, copied there once: a copy from host
+    memory on every call would make the stream wait for it."""
+    return torch.as_tensor(ARCFACE_DST, device=device)
+
+
 def estimate_norm(landmarks: torch.Tensor, image_size: int = 112
                   ) -> torch.Tensor:
     """(..., 5, 2) landmarks -> (..., 2, 3) alignment matrices onto the
     ArcFace template scaled by image_size/112."""
-    dst = torch.as_tensor(ARCFACE_DST, device=landmarks.device)
-    dst = dst * (float(image_size) / 112.0)
+    dst = _template_on(landmarks.device) * (float(image_size) / 112.0)
     dst = dst.expand(landmarks.shape[:-2] + dst.shape)
     return umeyama_similarity(landmarks, dst)

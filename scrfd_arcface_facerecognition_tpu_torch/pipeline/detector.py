@@ -44,6 +44,62 @@ def as_frames(frames, device: torch.device) -> torch.Tensor:
     return frames.to(device).contiguous()
 
 
+class FrameStaging:
+    """Host frame batches onto the card without making the host wait for
+    the work already queued there.
+
+    A copy from pageable memory waits for the stream's queue and blocks
+    the host, so a stream fed from numpy could never keep batches in
+    flight. Here each batch is copied into one of ``SLOTS`` pinned
+    buffers, then to the card on a stream of its own (the copy engine
+    runs beside the compute); the compute stream waits on the copy's
+    event, and a buffer is refilled only once the copy that read it has
+    ended. Tensors already on the device pass through; on the CPU this is
+    ``as_frames``. ``chip_smoke.py`` (phases 13 and 14) times it against
+    the pageable copy.
+    """
+
+    SLOTS = 2
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._ring: List[Optional[Tuple[torch.Tensor, Any]]] = (
+            [None] * self.SLOTS)
+        self._next = 0
+        self._stream = None
+
+    def __call__(self, frames) -> torch.Tensor:
+        if (self.device.type != "cuda" or isinstance(frames, torch.Tensor)):
+            return as_frames(frames, self.device)
+        arr = np.ascontiguousarray(frames)
+        if arr.ndim == 3:
+            arr = arr[None]
+        src = torch.from_numpy(arr)
+        slot = self._next % self.SLOTS
+        self._next += 1
+        entry = self._ring[slot]
+        if (entry is None or entry[0].numel() < src.numel()
+                or entry[0].dtype != src.dtype):
+            buf = torch.empty(src.numel(), dtype=src.dtype, pin_memory=True)
+        else:
+            buf, done = entry
+            done.synchronize()           # the last copy out of it ended
+        host = buf[:src.numel()].view(src.shape)
+        host.copy_(src)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._stream):
+            out = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+            out.copy_(host, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        compute.wait_event(done)
+        out.record_stream(compute)       # freed only after the compute
+        self._ring[slot] = (buf, done)
+        return out
+
+
 def decode_outputs(outputs: Dict[str, List[torch.Tensor]],
                    input_size: Tuple[int, int],
                    strides=ops.anchors.SCRFD_STRIDES
@@ -105,14 +161,21 @@ def _detect_canvas(model: SCRFDNet, canvas: torch.Tensor, *,
 def detect_batch(model: SCRFDNet, frames: torch.Tensor, *,
                  plan: ops.LetterboxPlan, conf_thres: float, iou_thres: float,
                  pre_nms: int, max_det: int, max_num: int = 0,
-                 metric: str = "max") -> Detections:
-    """Full detect over (B, H, W, 3) uint8 BGR frames of one shape."""
+                 metric: str = "max",
+                 compute_dtype: torch.dtype = torch.float32) -> Detections:
+    """Full detect over (B, H, W, 3) uint8 BGR frames of one shape.
+
+    ``compute_dtype``: the letterbox's compute dtype; bfloat16 when the
+    detector computes in it (at most one intensity step on the canvas).
+    """
     with stage("letterbox"):
-        canvas = ops.letterbox(frames, plan)
+        canvas = ops.letterbox(frames, plan, dtype=compute_dtype)
     b = frames.shape[0]
     inv_scale = torch.full((b,), 1.0 / plan.det_scale, dtype=torch.float32,
                            device=frames.device)
-    frame_hw = torch.tensor(plan.frame_hw, device=frames.device).expand(b, 2)
+    # filled on the device: a copy from the host would wait for the stream
+    frame_hw = torch.empty((b, 2), dtype=torch.int64, device=frames.device)
+    frame_hw[:, 0], frame_hw[:, 1] = plan.frame_hw
     return _detect_canvas(
         model, canvas, model_hw=plan.model_hw, inv_scale=inv_scale,
         frame_hw=frame_hw, conf_thres=conf_thres, iou_thres=iou_thres,
@@ -132,7 +195,8 @@ def detect_batch_dynamic(model: SCRFDNet, frames: torch.Tensor,
     wy (B, mh, Hp) / wx (B, mw, Wp) from ``ops.letterbox_matrices``;
     inv_scale (B,) f32, 1 / det_scale per image; frame_hw (B, 2) the
     original sizes. The canvas is the exact-shape letterbox's, so results
-    match per-shape processing.
+    match per-shape processing. Its letterbox stays float32 whatever the
+    model computes in, as in the JAX package.
     """
     with stage("letterbox"):
         canvas = ops.letterbox_dynamic(frames, wy, wx)
@@ -150,18 +214,21 @@ class Detector:
 
     ``variables`` is a Flax tree of numpy arrays (``{"params",
     "batch_stats"}``, see ``models/weights.py``); without it the weights
-    are the seeded init. The model lives on ``device``: the CUDA card
-    unless ``device="cpu"`` is passed.
+    are the seeded init. ``dtype`` is the compute dtype (float32 or
+    bfloat16; the weights stay float32). The model lives on ``device``:
+    the CUDA card unless ``device="cpu"`` is passed.
     """
 
     def __init__(self, variant: str = "det_10g",
                  variables: Optional[Any] = None,
                  input_size: Tuple[int, int] = (640, 640),
                  conf_thres: float = 0.5, iou_thres: float = 0.4,
-                 pre_nms: int = 256, max_det: int = 64, seed: int = 0,
+                 pre_nms: int = 256, max_det: int = 64,
+                 dtype: torch.dtype = torch.float32, seed: int = 0,
                  tight_canvas: bool = False,
                  config: Optional[SCRFDConfig] = None, device=None):
         self.device = resolve_device(device)
+        self.dtype = dtype
         if config is None:
             if variant not in SCRFD_CONFIGS:
                 raise ValueError(f"unknown SCRFD variant {variant!r}")
@@ -175,7 +242,7 @@ class Detector:
         # False: the square canvas of the single-image reference API;
         # FacePipeline trims the pad band instead
         self.tight_canvas = tight_canvas
-        model = SCRFDNet(config)
+        model = SCRFDNet(config, dtype=dtype)
         if variables is None:
             seeded_init_(model, seed)
         else:
@@ -191,7 +258,10 @@ class Detector:
     @torch.inference_mode()
     def detect_batched(self, frames, max_num: int = 0,
                        metric: str = "max") -> Detections:
-        """(B, H, W, 3) uint8 BGR -> padded Detections on the device."""
+        """(B, H, W, 3) uint8 BGR -> padded Detections on the device. The
+        letterbox is float32 here whatever the model computes in, as the
+        JAX package's plain detect API has it; ``FacePipeline`` letterboxes
+        in the detector's dtype."""
         frames = as_frames(frames, self.device)
         return detect_batch(
             self.model, frames, plan=self.plan(tuple(frames.shape[1:3])),

@@ -63,14 +63,19 @@ class Embedder:
     """User-facing ArcFace embedder.
 
     ``variables`` is a Flax tree of numpy arrays; without it the weights
-    are the seeded init. The model lives on ``device``: the CUDA card
-    unless ``device="cpu"`` is passed.
+    are the seeded init. ``dtype`` is the compute dtype (float32 or
+    bfloat16; the weights stay float32): K1 still writes float32 crops,
+    the model casts them, and the embedding leaves it as float32. The
+    model lives on ``device``: the CUDA card unless ``device="cpu"`` is
+    passed.
     """
 
     def __init__(self, variant: str = "w600k_r50",
-                 variables: Optional[Any] = None, seed: int = 0,
+                 variables: Optional[Any] = None,
+                 dtype: torch.dtype = torch.float32, seed: int = 0,
                  config: Optional[ArcFaceConfig] = None, device=None):
         self.device = resolve_device(device)
+        self.dtype = dtype
         if config is None:
             if variant not in ARCFACE_CONFIGS:
                 raise ValueError(f"unknown ArcFace variant {variant!r}")
@@ -78,7 +83,7 @@ class Embedder:
         self.variant = config.name
         self.input_size = (112, 112)
         self.emb_dim = config.emb_dim
-        model = arcface_from_config(config)
+        model = arcface_from_config(config, dtype)
         if variables is None:
             seeded_init_(model, seed)
         else:

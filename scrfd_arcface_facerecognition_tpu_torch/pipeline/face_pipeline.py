@@ -3,11 +3,15 @@
 Stage 1 detects (letterbox -> SCRFD -> decode -> NMS); stage 2 aligns,
 warps, embeds and matches only the valid faces, compacted to the front and
 padded to a face-count bucket. The one host sync per batch is the face
-count that picks the bucket; everything else stays on the device.
+count that picks the bucket; everything else stays on the device. On the
+card the count travels to pinned host memory behind an event
+(``CountReadback``), so ``process_stream`` can queue the next batches'
+detects before it waits for one.
 """
 from __future__ import annotations
 
 import logging
+from collections import deque
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -16,8 +20,8 @@ import torch
 from .. import ops
 from ..device import resolve_device
 from ..stages import stage
-from .detector import (Detections, Detector, as_frames, detect_batch,
-                       detect_batch_dynamic)
+from .detector import (Detections, Detector, FrameStaging, as_frames,
+                       detect_batch, detect_batch_dynamic)
 from .embedder import Embedder, embed_crops, embed_faces
 
 
@@ -48,9 +52,10 @@ def _match_gallery(emb_flat: torch.Tensor, gallery: torch.Tensor,
     invalid slots, empty galleries and non-finite similarities.
 
     The product is full float32 (no TF32), the reference's HIGHEST
-    precision; ``argmax`` takes the first maximum, as ``jnp.argmax``.
+    precision, whatever dtype the embeddings come in; ``argmax`` takes the
+    first maximum, as ``jnp.argmax``.
     """
-    sims = emb_flat @ gallery.T                                  # (F, G)
+    sims = emb_flat.float() @ gallery.T                          # (F, G)
     sims = torch.where(gallery_valid[None, :], sims,
                        torch.full_like(sims, -torch.inf))
     best_sim = sims.max(dim=-1).values
@@ -124,6 +129,40 @@ def embed_and_match(model, frames: torch.Tensor, det: Detections,
                           match_sim=best_sim.reshape(b, k))
 
 
+class CountReadback:
+    """A batch's face count on its way to the host.
+
+    On the card the count is copied into pinned host memory without
+    blocking, and an event is recorded behind the copy; ``value()`` waits
+    on that event alone (the counterpart of the JAX package's
+    ``_read_counts``, which transfers a ready buffer). On the CPU it is
+    the plain ``int``.
+    """
+
+    def __init__(self, count: torch.Tensor):
+        self.event = None
+        if count.device.type == "cuda":
+            self.host = torch.empty((), dtype=count.dtype, pin_memory=True)
+            self.host.copy_(count, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = count
+
+    def value(self) -> int:
+        if self.event is not None:
+            self.event.synchronize()
+        return int(self.host)
+
+
+class Dispatched(NamedTuple):
+    """A batch whose detect is queued: its frames on the device, its
+    detections and its face count on the way to the host."""
+    frames: torch.Tensor
+    det: Detections
+    count: CountReadback
+
+
 class FacePipeline:
     """Detector + Embedder + gallery on one device.
 
@@ -132,7 +171,10 @@ class FacePipeline:
     >>> out = pipe(frames_u8)           # (B, H, W, 3) BGR batch
 
     Runs on the CUDA card unless ``device="cpu"`` is passed; a supplied
-    detector or embedder must live on the same kind of device.
+    detector or embedder must live on the same kind of device. ``dtype``
+    is the models' compute dtype when the pipeline builds them (float32 or
+    bfloat16); with a bfloat16 detector the letterbox computes in bfloat16
+    too.
     """
 
     def __init__(self, detector: Detector = None, embedder: Embedder = None,
@@ -140,14 +182,16 @@ class FacePipeline:
                  conf_thres: float = 0.5, iou_thres: float = 0.4,
                  similarity_thresh: float = 0.4,
                  pre_nms: int = 256, max_det: int = 16,
-                 gallery_capacity: int = 512, seed: int = 0,
+                 gallery_capacity: int = 512,
+                 dtype: torch.dtype = torch.float32, seed: int = 0,
                  tight_canvas: bool = True, device=None):
         self.device = resolve_device(device)
         self.detector = detector or Detector(
             det_variant, conf_thres=conf_thres, iou_thres=iou_thres,
-            pre_nms=pre_nms, max_det=max_det, seed=seed, device=self.device)
-        self.embedder = embedder or Embedder(rec_variant, seed=seed,
-                                             device=self.device)
+            pre_nms=pre_nms, max_det=max_det, dtype=dtype, seed=seed,
+            device=self.device)
+        self.embedder = embedder or Embedder(rec_variant, dtype=dtype,
+                                             seed=seed, device=self.device)
         for part in (self.detector, self.embedder):
             if part.device.type != self.device.type:
                 raise ValueError(f"{type(part).__name__} lives on "
@@ -171,6 +215,7 @@ class FacePipeline:
         self._gallery_valid = torch.zeros((gallery_capacity,),
                                           dtype=torch.bool,
                                           device=self.device)
+        self._staging = FrameStaging(self.device)
 
     # ------------------------------------------------------------- gallery
 
@@ -201,19 +246,32 @@ class FacePipeline:
         """(B, H, W, 3) u8 BGR frames of one shape -> PipelineOutput.
         ``bucketed=False`` embeds every slot instead of the valid faces'
         bucket (same results, more work; no host sync)."""
-        frames = as_frames(frames, self.device)
-        plan = self.detector.plan(tuple(frames.shape[1:3]),
-                                  tight=self.tight_canvas)
-        det = detect_batch(
-            self.detector.model, frames, plan=plan,
-            conf_thres=self.detector.conf_thres,
-            iou_thres=self.detector.iou_thres, pre_nms=self.pre_nms,
-            max_det=self.max_det, max_num=max_num, metric=metric)
         if bucketed:
-            return self._finish(frames, det)
+            return self._finish(self._dispatch(frames, max_num, metric))
+        frames = self._staging(frames)
+        det = self._detect(frames, max_num, metric)
         return embed_and_match(
             self.embedder.model, frames, det, self._gallery,
             self._gallery_valid, similarity_thresh=self.similarity_thresh)
+
+    def _detect(self, frames: torch.Tensor, max_num: int,
+                metric: str) -> Detections:
+        plan = self.detector.plan(tuple(frames.shape[1:3]),
+                                  tight=self.tight_canvas)
+        return detect_batch(
+            self.detector.model, frames, plan=plan,
+            conf_thres=self.detector.conf_thres,
+            iou_thres=self.detector.iou_thres, pre_nms=self.pre_nms,
+            max_det=self.max_det, max_num=max_num, metric=metric,
+            compute_dtype=self.detector.dtype)
+
+    @torch.inference_mode()
+    def _dispatch(self, frames, max_num: int, metric: str) -> Dispatched:
+        """Stage 1 queued on the device, and the face count sent on its
+        way to the host; nothing here waits for the device."""
+        frames = self._staging(frames)
+        det = self._detect(frames, max_num, metric)
+        return Dispatched(frames, det, CountReadback(det.valid.sum()))
 
     @torch.inference_mode()
     def call_dynamic(self, frames, wy, wx, det_scales, frame_hws,
@@ -241,14 +299,23 @@ class FacePipeline:
             conf_thres=self.detector.conf_thres,
             iou_thres=self.detector.iou_thres, pre_nms=self.pre_nms,
             max_det=self.max_det, max_num=max_num, metric=metric)
-        return self._finish(frames, det)
+        return self._finish(Dispatched(frames, det,
+                                       CountReadback(det.valid.sum())))
 
     def process_stream(self, frames_iter, max_num: int = 0,
-                       metric: str = "max"):
-        """Yields a PipelineOutput per input batch, one batch after the
-        other (batches may differ in shape)."""
+                       metric: str = "max", depth: int = 2):
+        """Yields a PipelineOutput per input batch, in order (batches may
+        differ in shape), keeping ``depth`` batches in flight: batches
+        i+1..i+depth are dispatched before batch i's face count is read,
+        so the count's trip to the host overlaps device work instead of
+        draining the queue. ``depth`` below 1 acts as 1."""
+        pending = deque()
         for frames in frames_iter:
-            yield self(frames, max_num=max_num, metric=metric)
+            pending.append(self._dispatch(frames, max_num, metric))
+            if len(pending) > max(1, depth):
+                yield self._finish(pending.popleft())
+        while pending:
+            yield self._finish(pending.popleft())
 
     @staticmethod
     def _round_bucket(count: int, cap: int) -> int:
@@ -264,10 +331,13 @@ class FacePipeline:
             b = -(-count // 64) * 64
         return min(b, cap)
 
-    def _finish(self, frames: torch.Tensor, det: Detections) -> PipelineOutput:
-        """Stage 2 for a finished detect, bucketed by the real face count."""
+    @torch.inference_mode()
+    def _finish(self, batch: Dispatched) -> PipelineOutput:
+        """Stage 2 for a dispatched detect, bucketed by the real face
+        count: the batch's one wait for the device."""
+        frames, det = batch.frames, batch.det
         b, k = det.valid.shape
-        count = int(det.valid.sum())        # the batch's one host sync
+        count = batch.count.value()
         bucket = self._round_bucket(count, b * k)
         if bucket == 0:
             return PipelineOutput(

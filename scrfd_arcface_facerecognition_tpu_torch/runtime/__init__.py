@@ -1,9 +1,14 @@
-"""Host runtime of the port: the native library's gallery bindings and the
-request micro-batcher."""
+"""Host runtime of the port: the native library's bindings (the frame
+ring, the gallery snapshots, the union-find, the video decoder), the video
+readers and the request micro-batcher."""
 
 from .microbatch import MicroBatcher, MicroBatcherClosed
-from .native import (build_native, native_available, snapshot_read,
-                     snapshot_write, uf_group_roots)
+from .native import (FramePipe, NativeVideoReader, build_native,
+                     native_available, snapshot_read, snapshot_write,
+                     uf_group_roots)
+from .video import BatchedFrameReader, MultiStreamReader, open_capture
 
-__all__ = ["MicroBatcher", "MicroBatcherClosed", "build_native", "native_available", "snapshot_read",
-           "snapshot_write", "uf_group_roots"]
+__all__ = ["MicroBatcher", "MicroBatcherClosed", "FramePipe",
+           "NativeVideoReader", "build_native", "native_available",
+           "snapshot_read", "snapshot_write", "uf_group_roots",
+           "BatchedFrameReader", "MultiStreamReader", "open_capture"]

@@ -25,7 +25,8 @@ def test_import_leaves_no_jax_in_sys_modules():
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {_FORBIDDEN!r})\n"
         "new = ('apps.face_analysis', 'apps.clustering', 'apps.verification',\n"
         "       'apps.quality', 'apps.metadata_db', 'apps.json_storage',\n"
-        "       'utils.config', 'runtime.microbatch')\n"
+        "       'utils.config', 'runtime.microbatch', 'runtime.video',\n"
+        "       'utils.drawing', 'apps.realtime')\n"
         "bad += [m for m in new if p.__name__ + '.' + m not in sys.modules]\n"
         "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
@@ -62,7 +63,9 @@ def test_no_module_of_the_port_imports_jax_flax_or_the_jax_package():
                 "apps/verification.py", "apps/quality.py",
                 "apps/metadata_db.py", "apps/json_storage.py",
                 "apps/__init__.py", "utils/config.py", "utils/__init__.py",
-                "runtime/microbatch.py"):
+                "runtime/microbatch.py", "runtime/video.py",
+                "runtime/__init__.py", "utils/drawing.py",
+                "apps/realtime.py"):
         assert mod in names, mod
     for path in files:
         bad = set(_imported_roots(path)) & set(_FORBIDDEN)
@@ -94,11 +97,17 @@ def test_no_module_of_the_port_imports_cv2_at_module_level():
     files.append(os.path.join(_REPO, "chip_smoke.py"))
     for path in files:
         assert "cv2" not in _module_level_roots(path), path
-    # the loader keeps its cv2 inside the function, as the original does
-    src = os.path.join(_PKG, "apps", "clustering.py")
-    assert "cv2" in set(_imported_roots(src))
+    # the loader, the video opener, the drawing and the realtime app's
+    # reader / writer / display keep their cv2 inside functions
+    for mod in (("apps", "clustering.py"), ("runtime", "video.py"),
+                ("utils", "drawing.py"), ("apps", "realtime.py")):
+        src = os.path.join(_PKG, *mod)
+        assert "cv2" in set(_imported_roots(src)), mod
+        assert "cv2" not in _module_level_roots(src), mod
     code = ("import sys\n"
             "import scrfd_arcface_facerecognition_tpu_torch.apps\n"
+            "import scrfd_arcface_facerecognition_tpu_torch.runtime\n"
+            "import scrfd_arcface_facerecognition_tpu_torch.utils\n"
             "print('cv2' in sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
@@ -111,15 +120,21 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from scrfd_arcface_facerecognition_tpu_torch import (
         Detector, Embedder, FaceAnalysis, FaceComparison, FacePipeline,
         SmartFaceEngine, ops, resolve_device)
+    from scrfd_arcface_facerecognition_tpu_torch.apps import realtime
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # the app builds its pipeline (on the card) before it opens anything
+    app_args = realtime.parse_args(["--det-weight", "det_500m.onnx",
+                                    "--rec-weight", "w600k_mbf.onnx",
+                                    "--source", "missing.mp4"])
     for make in (FacePipeline, Detector, Embedder, FaceAnalysis,
                  lambda: SmartFaceEngine(config={}, app=object()),
                  lambda: FaceComparison(config={}, app=object(),
                                         log_file=None),
                  lambda: resolve_device("cuda"),
                  lambda: ops.anchor_centers(4, 4, 8),
-                 lambda: ops.scrfd_anchor_table((64, 64))):
+                 lambda: ops.scrfd_anchor_table((64, 64)),
+                 lambda: realtime.run(app_args)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert resolve_device("cpu").type == "cpu"

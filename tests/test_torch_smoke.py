@@ -450,3 +450,242 @@ def test_identity_app_gives_the_fake_stacks_faces():
         np.testing.assert_array_equal(g[0].bbox, w[0].bbox)
         np.testing.assert_array_equal(g[0].kps, w[0].kps)
         assert g[0].det_score == w[0].det_score
+
+
+# ------------------------------------------------ phases 13 and 14, rehearsed
+
+
+class _Event:
+    def __init__(self, **kw):
+        pass
+
+    def record(self, *a):
+        pass
+
+    def elapsed_time(self, other):
+        return 0.0
+
+    def synchronize(self):
+        pass
+
+
+def _bf16_phases_on_the_cpu(monkeypatch):
+    """Phases 13 and 14 at small sizes on the CPU: the trained det_500m +
+    w600k_mbf checkpoints (det_size 128, conf 0.05) in place of the
+    full-width stand-ins; K1 counted where the wrapper would count it."""
+    from flax import serialization
+
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.pipeline import (
+        Detector, Embedder)
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    crops = ops.warp_align_crops
+
+    def counted(*a, **k):
+        wa.launches += 1
+        return crops(*a, **k)
+
+    monkeypatch.setattr(ops, "warp_align_crops", counted)
+    ckpt = os.path.join(_REPO, "checkpoints", "decisions")
+    trees = {}
+    for name in ("det_500m", "w600k_mbf"):
+        with open(os.path.join(ckpt, name + ".msgpack"), "rb") as f:
+            trees[name] = serialization.msgpack_restore(f.read())
+
+    def parts(torch_, dtype, **det_kw):
+        det_kw.update(conf_thres=0.05)
+        return (Detector("det_500m", variables=trees["det_500m"],
+                         input_size=(128, 128), dtype=dtype, device="cpu",
+                         **det_kw),
+                Embedder("w600k_mbf", variables=trees["w600k_mbf"],
+                         dtype=dtype, device="cpu"))
+
+    monkeypatch.setattr(chip_smoke, "standin_parts", parts)
+    monkeypatch.setattr(chip_smoke, "BENCH", dict(
+        frames=2, hw=(72, 96), depth=3, depths=(1,), fed_depths=(1, 3),
+        rounds=1, max_num=2, gallery=4, conf=0.5, pre_nms=32, max_det=4))
+    monkeypatch.setattr(chip_smoke, "REALTIME", dict(
+        frames=7, hw=(72, 96), batch=3, faces=2, rounds=1, pre_nms=32,
+        max_det=4))
+    said = []
+    rep = chip_smoke.Report("CPU")
+    monkeypatch.setattr(rep, "say", said.append)
+    return rep, said
+
+
+def test_bf16_bench_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """Phase 13: the stream at each depth, resident and numpy-fed, the
+    stage splits, bf16 against f32, K1 on the path's inputs, and the
+    bench_bf16 line."""
+    import json
+
+    rep, said = _bf16_phases_on_the_cpu(monkeypatch)
+    bf = chip_smoke.phase_bf16_bench(torch, rep)
+    assert bf["launches"] > 0 and bf["err"] == 0.0
+    bench = bf["bench"]
+    assert bench["depth"] == 3 and bench["batch"] == 2
+    assert set(bench["by_depth"]) == {"1", "3"}
+    assert set(bench["numpy_fed_by_depth"]) == {"1", "3"}
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith('{"bench_bf16"')]
+    assert len(line) == 1 and json.loads(line[0])["bench_bf16"]["card"] == "CPU"
+    text = "\n".join(said)
+    for start in ("bf16 bench path: frames/s", "frames fed from numpy",
+                  "one call by stage", "bf16 vs f32 on the same",
+                  "K1 vs plain on the path's inputs"):
+        assert start in text, start
+
+
+def test_realtime_phase_rehearsed_on_the_cpu(monkeypatch):
+    """Phase 14: every frame through the app in order, each batch equal
+    to a direct call, K1 counted and held to its plain version; the app's
+    replaceable functions restored after it."""
+    from scrfd_arcface_facerecognition_tpu_torch.apps import realtime
+
+    before = (realtime.FacePipeline, realtime.open_capture,
+              realtime.open_writer, realtime.annotate_batch,
+              realtime.read_image)
+    rep, said = _bf16_phases_on_the_cpu(monkeypatch)
+    rt = chip_smoke.phase_realtime(torch, rep)
+    assert rt["launches"] > 0 and rt["err"] == 0.0
+    assert (realtime.FacePipeline, realtime.open_capture,
+            realtime.open_writer, realtime.annotate_batch,
+            realtime.read_image) == before
+    text = "\n".join(said)
+    assert "every frame written in order" in text and "[3, 3, 1]" in text
+    assert "numpy-fed process_stream" in text
+
+
+def test_phases_13_and_14_fail_on_a_wrong_k1(monkeypatch):
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    rep, _ = _bf16_phases_on_the_cpu(monkeypatch)
+    plain = wa.warp_align_plain
+    monkeypatch.setattr(wa, "warp_align_crops",
+                        lambda *a, **k: plain(*a, **k) + 0.01)
+    with pytest.raises(RuntimeError, match="warp_align: max abs err"):
+        chip_smoke.phase_bf16_bench(torch, rep)
+    with pytest.raises(RuntimeError, match="warp_align: max abs err"):
+        chip_smoke.phase_realtime(torch, rep)
+
+
+def test_phases_13_and_14_fail_on_an_output_mismatch(monkeypatch):
+    """A bf16 path that drifts from f32 fails phase 13; a stream whose
+    output differs from a direct call fails phase 14."""
+    from scrfd_arcface_facerecognition_tpu_torch.pipeline import (
+        face_pipeline)
+
+    rep, _ = _bf16_phases_on_the_cpu(monkeypatch)
+    parts = chip_smoke.standin_parts
+
+    def drifting(torch_, dtype, **kw):
+        det, emb = parts(torch_, dtype, **kw)
+        if dtype == torch.bfloat16:      # another embedder: unrelated rows
+            from scrfd_arcface_facerecognition_tpu_torch.pipeline import (
+                Embedder)
+            emb = Embedder("w600k_mbf", dtype=dtype, seed=5, device="cpu")
+        return det, emb
+
+    monkeypatch.setattr(chip_smoke, "standin_parts", drifting)
+    with pytest.raises(RuntimeError, match="bf16 and f32 disagree"):
+        chip_smoke.phase_bf16_bench(torch, rep)
+    monkeypatch.setattr(chip_smoke, "standin_parts", parts)
+    stream = face_pipeline.FacePipeline.process_stream
+
+    def shifted(self, *a, **k):
+        for out in stream(self, *a, **k):
+            yield out._replace(match_idx=out.match_idx + 1)
+
+    monkeypatch.setattr(face_pipeline.FacePipeline, "process_stream", shifted)
+    with pytest.raises(RuntimeError, match="match_idx differs"):
+        chip_smoke.phase_realtime(torch, rep)
+
+
+def test_phase12_engine_fails_when_no_visit_reaches_the_gallery(monkeypatch):
+    """Counters that add up are not enough: a run in which every visit
+    ends as "no face" took no decision on a model embedding, and fails."""
+    import types
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "FACADE", dict(visits=4,
+                                                   visit_hw=(64, 96)))
+
+    def no_faces(tmp, app, loader, visits, batches, device, **vdb):
+        from scrfd_arcface_facerecognition_tpu_torch.ops import (
+            warp_align as wa)
+
+        wa.launches += 1
+        out = os.path.join(tmp, "results")
+        os.makedirs(out)
+        eng = types.SimpleNamespace(
+            json_storage=types.SimpleNamespace(output_dir=out))
+        return eng, dict(new_persons=0, recognized=0, duplicate_faces=0,
+                         no_faces=4, low_quality=0, download_failed=0)
+
+    monkeypatch.setattr(chip_smoke, "run_engine", no_faces)
+    rep = chip_smoke.Report("CPU")
+    monkeypatch.setattr(rep, "say", lambda msg: None)
+    with pytest.raises(RuntimeError, match="engine: K1 launches 1"):
+        chip_smoke.phase_engine(torch, rep, None)
+
+
+def _checkpoints_on_the_cpu(monkeypatch, spoil=None):
+    """Phase 13b with the CPU on both sides; ``spoil`` edits the second
+    pipeline built (the card's bf16 one) before the phase uses it."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "CKPT", dict(chip_smoke.CKPT,
+                                                 frames=(6, 240, 320)))
+    build = chip_smoke.checkpoint_pipe
+    made = []
+
+    def pipe(torch_, dtype, device):
+        made.append(dtype)
+        if len(made) == 2 and spoil is not None:
+            return spoil(build, dtype, device)
+        return build(torch_, dtype, device)
+
+    monkeypatch.setattr(chip_smoke, "checkpoint_pipe", pipe)
+    said = []
+    rep = chip_smoke.Report("CPU")
+    monkeypatch.setattr(rep, "say", said.append)
+    return rep, said, made
+
+
+def test_bf16_checkpoints_phase_rehearsed_on_the_cpu(monkeypatch):
+    """Phase 13b: the trained checkpoints at bf16, read without Flax, the
+    head outputs within the bf16 budget, bf16 apart from f32, the
+    pipeline's faces paired and held end to end."""
+    rep, said, made = _checkpoints_on_the_cpu(monkeypatch)
+    res = chip_smoke.phase_bf16_checkpoints(torch, rep)
+    assert made == [torch.bfloat16, torch.bfloat16, torch.float32]
+    assert res["pairs"] > 0 and res["lone"] <= 2 and res["cos"] >= 0.999
+    assert min(res["apart"].values()) >= 0.5
+    assert "card vs CPU: head outputs on one canvas" in said[0]
+
+
+def test_bf16_checkpoints_phase_fails_on_a_card_that_stays_f32(monkeypatch):
+    rep, _, _ = _checkpoints_on_the_cpu(
+        monkeypatch, spoil=lambda build, dtype, device: build(
+            torch, torch.float32, device))
+    with pytest.raises(RuntimeError, match="did not round to bf16"):
+        chip_smoke.phase_bf16_checkpoints(torch, rep)
+
+
+def test_bf16_checkpoints_phase_fails_on_a_wrong_bf16_detector(monkeypatch):
+    """A detector whose BatchNorm goes wrong at bf16 (its variances 5 %
+    off) leaves the head outputs past the budget."""
+    def spoil(build, dtype, device):
+        p = build(torch, dtype, device)
+        for m in p.detector.model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_var.mul_(1.05)
+        return p
+
+    rep, _, _ = _checkpoints_on_the_cpu(monkeypatch, spoil=spoil)
+    with pytest.raises(RuntimeError, match="past the bf16 budget"):
+        chip_smoke.phase_bf16_checkpoints(torch, rep)
