@@ -152,8 +152,31 @@ non-zero exit if it fails:
    on the run's inputs; frames/s of the run with the decode thread
    overlapping, and numpy-fed ``process_stream`` over its batches at
    depth 1 and 2, staged and through the plain copy;
-15. one JSON line of every kernel's numbers (K1's launches are those of
-   phases 4, 13 and 14).
+15. the ONNX executor path (``models/onnx_exec.py``) on phase 11's
+   det_10g + w600k_r50 stand-in files: (a) the executor on the card
+   against the executor on the CPU at f32 (TF32 off) on 8 x 1080p frames
+   at the stand-in path's settings: the 9 head outputs on one canvas and
+   ArcFace on the path's crops, the pipeline's faces paired by IoU >= 0.9
+   (a face on one side only a checked tie) and held to the f32 budget,
+   each largest error said as a share of its budget; (b) the executor
+   against the native models loaded through the importer on the card at
+   f32 (TF32 off), then each model's device ms (cold L2), host ms of the
+   dispatch and CUDA kernels per forward at bf16, SCRFD at 8 and 96
+   canvases of 384 x 640 and ArcFace at 80 and 960 crops; (c) one warm
+   forward of each graph at bf16 and f32 under
+   ``torch.cuda.set_sync_debug_mode("error")`` (any host sync fails); (d)
+   ``FacePipeline(det_onnx=, rec_onnx=, dtype=bf16)`` at bench.py's
+   settings (``BENCH``: 96 x 1080p resident, depth 12, 3 rounds), frames/s
+   beside phase 13's native figure, one call by stage at bf16 and f32,
+   the device busy share of one round; (e) K1's launches over (d)'s
+   rounds and K1 against its plain version on the phase's inputs; (f)
+   ``FaceAnalysis(det_onnx=, rec_onnx=)`` ``get_batch`` on phase 12's
+   static images and ``apps.realtime.run`` with ``--det-weight`` /
+   ``--rec-weight`` the stand-in files on a synthetic 16-frame capture:
+   every frame written in order, each batch's count equal to a direct
+   call;
+16. one JSON line of every kernel's numbers (K1's launches are those of
+   phases 4, 13, 14 and 15).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside it, the script exits non-zero and prints no
@@ -244,6 +267,11 @@ CKPT = dict(det="det_500m", rec="w600k_mbf", frames=(16, 240, 320),
             max_ties=2)
 REALTIME = dict(frames=43, hw=(1080, 1920), batch=8, faces=3, rounds=3,
                 pre_nms=256, max_det=16)
+# phase 15: the ONNX executor path (the stand-in files of phase 11 through
+# models/onnx_exec.py): SCRFD timed at these canvas counts and ArcFace at
+# these crop counts; the realtime app's capture (frames, batch)
+ONNX_EXEC = dict(det_canvases=(8, 96), rec_crops=(80, 960), canvas=(384, 640),
+                 realtime=(16, 8))
 TOL_CANVAS = 1e-4       # dynamic canvas vs exact-shape letterbox
 TOL_RECORD = 1e-5       # engine floats (similarities), card vs CPU
 
@@ -2919,6 +2947,465 @@ def phase_realtime(torch, rep):
     return dict(launches=launches, err=err, fps=steady)
 
 
+# ---------------------------------------------------------------------
+# phase 15: the ONNX executor path
+#
+# The released .onnx graphs run op by op through models/onnx_exec.py. Its
+# numbers are held to the f32 budget of PERF.md §2: boxes and kps within
+# 1e-2 frame px, scores within 1e-4, embeddings cosine >= 0.9999. The
+# stand-ins score every anchor almost alike, so faces are paired by IoU
+# >= 0.9 and a face on one side only must be a tie (score within 2 bf16
+# ulps of conf, of the pre-NMS slate's cut or of the last face a full
+# max_det slate keeps, or an NMS IoU within 0.05), or one half of an
+# order tie: a face on the other side only that overlaps it past the NMS
+# threshold with a score within 2 bf16 ulps (NMS keeps whichever of two
+# such faces sorts first). The pipelines are
+# compared at max_num 0: the stand-ins' boxes come out near one size, so
+# the max_num selection by area ties.
+
+
+def head_shares(torch, want, got, det_scale, strides=(8, 16, 32)):
+    """The largest |got - want| of each head kind on one canvas, a share
+    of the f32 budget: scores 1e-4; box and kps distances (stride units)
+    1e-2 frame px, i.e. 1e-2 * det_scale / stride."""
+    out = {}
+    for key in ("scores", "bboxes", "kps"):
+        worst = 0.0
+        for li, s in enumerate(strides):
+            d = float((got[key][li].float().cpu()
+                       - want[key][li].float().cpu()).abs().max())
+            tol = 1e-4 if key == "scores" else 1e-2 * det_scale / s
+            worst = max(worst, d / tol)
+        out[key] = worst
+    return out
+
+
+def hold_f32_faces(torch, ref, out, *, conf, cuts, iou_thres, sim, where):
+    """Two PipelineOutputs of the same frames at the f32 budget, faces
+    paired by IoU >= 0.9; a face on one side only must be a tie (``cuts``:
+    each frame's scores a face may tie with). Returns
+    the largest shares of the budget (boxes / kps, scores, 1 - cos,
+    match_sim), the pairs and the one-sided count."""
+    a = [t.float().cpu().numpy() if t.is_floating_point() else t.cpu().numpy()
+         for t in ref]
+    b = [t.float().cpu().numpy() if t.is_floating_point() else t.cpu().numpy()
+         for t in out]
+    jb, js, jk, jv, _, je, ji, jm = a
+    tb, ts, tk, tv, _, te, ti, tm = b
+    share = dict(px=0.0, score=0.0, cos=0.0, sim=0.0)
+    npairs, lone = 0, 0
+    near = lambda v, edge: abs(float(v) - float(edge)) <= 2 * bf16_ulp(edge)
+    for f in range(len(jv)):
+        wk, gk = np.flatnonzero(jv[f]), np.flatnonzero(tv[f])
+        pairs, used = [], set()
+        for i in wk:
+            best, bj = 0.9, None
+            for j in gk:
+                if j not in used and box_iou(jb[f, i], tb[f, j]) >= best:
+                    best, bj = box_iou(jb[f, i], tb[f, j]), j
+            if bj is not None:
+                used.add(bj)
+                pairs.append((i, bj))
+        for i, j in pairs:
+            px = max(float(np.abs(tb[f, j] - jb[f, i]).max()),
+                     float(np.abs(tk[f, j] - jk[f, i]).max()))
+            x, y = je[f, i], te[f, j]
+            cos = float(x @ y / (np.linalg.norm(x) * np.linalg.norm(y)))
+            share["px"] = max(share["px"], px / 1e-2)
+            share["score"] = max(share["score"],
+                                 abs(float(ts[f, j] - js[f, i])) / 1e-4)
+            share["cos"] = max(share["cos"], (1 - cos) / 1e-4)
+            share["sim"] = max(share["sim"],
+                               abs(float(tm[f, j] - jm[f, i])) / 1e-4)
+            if (ji[f, i] != ti[f, j] and abs(float(jm[f, i]) - sim) > 1e-4
+                    and abs(float(tm[f, j]) - sim) > 1e-4):
+                fail(f"{where}, frame {f}: match_idx {ti[f, j]} against "
+                     f"{ji[f, i]} away from the threshold")
+        lone_ref = [i for i in wk if i not in {p for p, _ in pairs}]
+        lone_out = [j for j in gk if j not in used]
+        others = ([(jb[f, i], js[f, i], tb[f, gk],
+                    [(tb[f, j], ts[f, j]) for j in lone_out])
+                   for i in lone_ref]
+                  + [(tb[f, j], ts[f, j], jb[f, wk],
+                      [(jb[f, i], js[f, i]) for i in lone_ref])
+                     for j in lone_out])
+        for box, score, other, rivals in others:
+            if not (near(score, conf) or any(near(score, cut)
+                                             for cut in cuts[f]) or any(
+                    abs(box_iou(box, ob) - iou_thres) <= 0.05
+                    for ob in other) or any(
+                    box_iou(box, rb) > iou_thres - 0.05 and near(rs, score)
+                    for rb, rs in rivals)):
+                best = max(other, key=lambda ob: box_iou(box, ob),
+                           default=None)
+                fail(f"{where}, frame {f}: a face on one side only is no "
+                     f"tie (score {score}, box {box}, conf {conf}, cuts "
+                     f"{cuts[f]}; the other side's nearest box {best}, IoU "
+                     f"{box_iou(box, best) if best is not None else None})")
+        npairs += len(pairs)
+        lone += len(others)
+    if not npairs or any(v > 1 for v in share.values()):
+        fail(f"{where}: {npairs} faces paired; shares of the f32 budget "
+             f"{share}")
+    return share, npairs, lone
+
+
+def slate_cuts(torch, ops, heads, pre_nms):
+    """Each frame's pre-NMS slate cut: the score of its pre_nms-th anchor."""
+    scores = torch.cat([s[..., 0].float().cpu() for s in heads["scores"]],
+                       dim=1)
+    return ops.stable_top_k(scores, pre_nms)[0][:, -1].numpy()
+
+
+def forward_costs(torch, fn):
+    """One forward's device ms (cold L2, CUDA events), host ms (the
+    dispatch, median of 3, the card idle before each) and the device
+    kernels it launched (torch.profiler; None where the trace shows no
+    device event)."""
+    ms = time_ms(torch, fn, iters=5)
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    kernels = None
+    if DEV == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset",
+                                          "Command Buffer"))]
+        kernels = len(dev) or None
+    return dict(ms=ms, host_ms=sorted(host)[1], kernels=kernels)
+
+
+def no_sync(torch, fn, what):
+    """fn() under torch.cuda.set_sync_debug_mode("error"): any host-device
+    synchronization in it fails the phase."""
+    if DEV != "cuda":
+        return "not checked on the CPU"
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        fail(f"{what}: a warm forward synchronized with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return "no sync"
+
+
+def executor_pipe(torch, paths, dtype, device, **kw):
+    from scrfd_arcface_facerecognition_tpu_torch import FacePipeline
+
+    c = STANDIN
+    return FacePipeline(det_onnx=paths["det_10g"], rec_onnx=paths["w600k_r50"],
+                        conf_thres=c["conf"], pre_nms=c["pre_nms"],
+                        max_det=c["max_det"], gallery_capacity=c["gallery"],
+                        dtype=dtype, device=device, **kw)
+
+
+def phase_onnx_exec(torch, rep, native_bench):
+    """15: the stand-in files through the ONNX graph executor: (a) card
+    against CPU at f32; (b) against the native models on the card, with
+    each model's device ms, host ms and kernels per forward; (c) a warm
+    forward makes no host sync; (d) bench.py's settings at bf16, beside
+    phase 13's native figure; (e) K1 counted on (d) and held on the
+    phase's inputs; (f) FaceAnalysis and the realtime app on the files."""
+    from scrfd_arcface_facerecognition_tpu_torch import ops, stages
+    from scrfd_arcface_facerecognition_tpu_torch.models import graph_models
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.pipeline.embedder import (
+        crop_matrices)
+    from scrfd_arcface_facerecognition_tpu_torch.pipeline.face_pipeline import (
+        bucket_slots)
+
+    t0 = time.perf_counter()
+    c, ox = STANDIN, ONNX_EXEC
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "standins")
+    paths = standin_onnx(torch, build)
+    nb, (h, w), ng = c["frames"], c["hw"], c["gallery"]
+    rng = np.random.default_rng(15)
+    gallery = rng.normal(size=(ng, 512)).astype(np.float32)
+    frames = rng.integers(0, 255, (nb, h, w, 3), dtype=np.uint8)
+    frames_dev = torch.from_numpy(frames).to(DEV)
+
+    # (a) card against CPU, f32 (the executor turns TF32 off itself)
+    cpu = executor_pipe(torch, paths, torch.float32, "cpu")
+    card = executor_pipe(torch, paths, torch.float32, DEV)
+    for p in (cpu, card):
+        p.set_gallery(gallery, [f"p{i}" for i in range(ng)])
+        if not isinstance(p.detector.model, graph_models.SCRFDGraphModule):
+            fail("executor path: the detector is not the graph module")
+    plan = ops.tight_letterbox_plan((h, w), cpu.detector.input_size)
+    canvas = ops.letterbox(torch.from_numpy(frames[:1]), plan)
+    net_in = ops.normalize_image(canvas, ops.SCRFD_MEAN, ops.SCRFD_STD
+                                 ).permute(0, 3, 1, 2).contiguous()
+    with torch.inference_mode():
+        want = cpu.detector.model(net_in)
+        got = card.detector.model(net_in.to(DEV))
+    heads = head_shares(torch, want, got, plan.det_scale)
+    ref = cpu(frames)
+    with k1_capture() as k1_calls:
+        out = card(frames_dev)
+    with torch.inference_mode():                  # the slates, on the card
+        full = card.detector.model(ops.normalize_image(
+            ops.letterbox(frames_dev, plan), ops.SCRFD_MEAN,
+            ops.SCRFD_STD).permute(0, 3, 1, 2).contiguous())
+    full_slate = ref.valid.all(dim=1)
+    last = ref.scores[:, -1]
+    cuts = [(float(sc),) + ((float(last[f]),) if full_slate[f] else ())
+            for f, sc in enumerate(slate_cuts(torch, ops, full,
+                                              c["pre_nms"]))]
+    share, npairs, lone = hold_f32_faces(
+        torch, ref, out, conf=c["conf"], cuts=cuts,
+        iou_thres=card.detector.iou_thres, sim=card.similarity_thresh,
+        where="executor card vs CPU")
+    b, k = out.valid.shape
+    faces = int(out.valid.sum())
+    sel, fidx = bucket_slots(out.valid, faces)
+    kps = out.kps.reshape(b * k, 5, 2)[sel]
+    crops = ops.warp_align_crops(frames_dev, crop_matrices(kps), fidx)
+    with torch.inference_mode():
+        e_card = card.embedder.model(crops)
+        e_cpu = cpu.embedder.model(crops.cpu())
+    cos_cpu = float(torch.nn.functional.cosine_similarity(
+        e_card.cpu(), e_cpu).min())
+    if cos_cpu < 0.9999 or any(v > 1 for v in heads.values()):
+        fail(f"executor card vs CPU: heads {heads} of the f32 budget, "
+             f"ArcFace cosine {cos_cpu}")
+    rep.say(f"onnx executor, card vs CPU (f32, TF32 off), det_10g + "
+            f"w600k_r50 stand-in files, {nb}x{h}x{w} frames, conf "
+            f"{c['conf']}, max_det {c['max_det']}, max_num 0: heads on one "
+            f"canvas, the "
+            f"largest error a share of the f32 budget: " + ", ".join(
+                f"{k_} {v:.4f}" for k_, v in heads.items())
+            + f"; pipeline faces {int(ref.valid.sum())} / {faces}, paired "
+            f"by IoU >= 0.9 {npairs}, on one side only (ties) {lone}; "
+            f"shares: boxes / kps {share['px']:.4f}, scores "
+            f"{share['score']:.4f}, 1 - cosine {share['cos']:.4f}, "
+            f"match_sim {share['sim']:.4f}; ArcFace on the path's {faces} "
+            f"crops min cosine {cos_cpu:.7f}")
+    del cpu
+
+    # (b) against the native models (the importer's), f32, TF32 off
+    det_n, emb_n = standin_parts(torch, torch.float32, conf_thres=c["conf"],
+                                 pre_nms=c["pre_nms"], max_det=c["max_det"])
+    with full_f32(torch), torch.inference_mode():
+        nat = det_n.model(net_in.to(DEV))
+        exe = card.detector.model(net_in.to(DEV))
+        en, ee = emb_n.model(crops), card.embedder.model(crops)
+    nheads = head_shares(torch, nat, exe, plan.det_scale)
+    cos_nat = float(torch.nn.functional.cosine_similarity(en, ee).min())
+    if cos_nat < 0.9999 or any(v > 1 for v in nheads.values()):
+        fail(f"executor vs native: heads {nheads} of the f32 budget, "
+             f"ArcFace cosine {cos_nat}")
+    rep.say("onnx executor vs the native models (the importer's) on the "
+            "card, f32, TF32 off: heads, the largest error a share of the "
+            "f32 budget: " + ", ".join(f"{k_} {v:.4f}"
+                                       for k_, v in nheads.items())
+            + f"; ArcFace on the {faces} crops min cosine {cos_nat:.7f}")
+    del det_n, emb_n, nat, exe, card
+
+    # per forward at bf16 (the serving dtype): executor and native
+    det_nb, emb_nb = standin_parts(torch, torch.bfloat16)
+    exe_det = graph_models.scrfd_from_onnx(paths["det_10g"], torch.bfloat16,
+                                           device=DEV)
+    exe_rec = graph_models.arcface_from_onnx(paths["w600k_r50"],
+                                             torch.bfloat16, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(15)
+    costs = []
+    with torch.inference_mode():
+        for what, n, shape, models in (
+                ("SCRFD", ox["det_canvases"], (3, *ox["canvas"]),
+                 (exe_det, det_nb.model)),
+                ("ArcFace", ox["rec_crops"], (3, 112, 112),
+                 (exe_rec, emb_nb.model))):
+            for count in n:
+                x = torch.randn((count, *shape), generator=gen, device=DEV)
+                for name, m in zip(("executor", "native"), models):
+                    r = forward_costs(torch, lambda: m(x))
+                    costs.append((what, count, name, r))
+                    del r
+                del x
+    rep.say("onnx executor vs native per forward at bf16 (device ms cold "
+            "L2 / host ms of the dispatch / CUDA kernels launched): " +
+            "; ".join(f"{wt} x{n} {nm} {r['ms']:.3f} / {r['host_ms']:.3f} / "
+                      f"{r['kernels']}" for wt, n, nm, r in costs))
+
+    # (c) a warm forward makes no host sync, at bf16 and f32
+    x8 = torch.randn((ox["det_canvases"][0], 3, *ox["canvas"]), device=DEV)
+    x80 = torch.randn((ox["rec_crops"][0], 3, 112, 112), device=DEV)
+    exe32 = (graph_models.scrfd_from_onnx(paths["det_10g"], device=DEV),
+             graph_models.arcface_from_onnx(paths["w600k_r50"], device=DEV))
+    syncs = []
+    with torch.inference_mode():
+        for name, m, x in (("det_10g bf16", exe_det, x8),
+                           ("w600k_r50 bf16", exe_rec, x80),
+                           ("det_10g f32", exe32[0], x8),
+                           ("w600k_r50 f32", exe32[1], x80)):
+            syncs.append(f"{name} {no_sync(torch, lambda: m(x), name)}")
+    rep.say("onnx executor, one warm forward of each graph under "
+            "set_sync_debug_mode('error'): " + ", ".join(syncs))
+    del exe_det, exe_rec, exe32, det_nb, emb_nb, x8, x80
+
+    # (d) bench.py's settings at bf16, resident frames, depth 12; (e) K1
+    bc = BENCH
+    pipes = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        pipes[name] = executor_pipe(torch, paths, dtype, DEV)
+        pipes[name].set_gallery(gallery, [f"p{i}" for i in range(ng)])
+    pipe = pipes["bf16"]
+    big = torch.from_numpy(rng.integers(0, 255, (bc["frames"], *bc["hw"], 3),
+                                        dtype=np.uint8)).to(DEV)
+    with k1_capture() as k1_bench:
+        pipe(big, max_num=bc["max_num"])
+        for _ in pipe.process_stream([big] * 2, max_num=bc["max_num"]):
+            pass
+    torch.cuda.synchronize()
+    wa.launches = 0
+    fps = stream_fps(torch, pipe, [big] * bc["depth"], bc["depth"],
+                     bc["max_num"], bc["rounds"])
+    launches = wa.launches
+    if launches <= 0:
+        fail("onnx executor bench path launched K1 no time")
+    busy = device_busy(torch, lambda: stream_fps(
+        torch, pipe, [big] * bc["depth"], bc["depth"], bc["max_num"], 1))
+    split = {}
+    for name in ("bf16", "f32"):
+        timer = StageTimer(torch)
+        stages.set_stage_hook(timer)
+        try:
+            o = pipes[name](big, max_num=bc["max_num"])
+            split[name] = timer.totals()
+        finally:
+            stages.set_stage_hook(None)
+        check_output(torch, o, bc["frames"], bc["max_num"],
+                     f"onnx executor bench path ({name})")
+    del pipes, big
+    s_ = sorted(fps)
+    native = native_bench.get("frames_per_sec")
+    rep.say(f"onnx executor bench path: bench.py's settings at bf16 "
+            f"({bc['frames']}x{bc['hw'][0]}x{bc['hw'][1]} frames resident, "
+            f"depth {bc['depth']}, {bc['rounds']} rounds): "
+            f"{fps_said(fps)} frames/s; the native models in phase 13 of "
+            f"this run {native if native is None else f'{native:.2f}'} "
+            f"frames/s; K1 launches {launches}; one call by stage (device "
+            f"ms): " + "; ".join(f"{n} scrfd {split[n].get('scrfd', 0.0):.3f},"
+                                 f" arcface {split[n].get('arcface', 0.0):.3f}"
+                                 for n in ("bf16", "f32"))
+            + f"; one round under torch.profiler: {busy_said(busy)}")
+    err, what = k1_on_path(torch, wa, list(k1_calls) + list(k1_bench))
+    rep.say(f"onnx executor path: K1 vs plain on the phase's inputs, {what}: "
+            f"max abs err {err:.6g} u8 (tolerance {TOL_U8})")
+
+    # (f) the entry points that took no weight file before
+    fa = phase_onnx_entry_points(torch, rep, paths)
+    rep.say(f"onnx executor phase done in {time.perf_counter() - t0:.1f} s")
+    return dict(launches=launches, err=max(err, fa["err"]), fps=s_[len(s_) // 2],
+                heads=heads, share=share, costs=costs)
+
+
+def phase_onnx_entry_points(torch, rep, paths):
+    """15f: FaceAnalysis(det_onnx=, rec_onnx=) on phase 12's static images;
+    realtime.run with --det-weight / --rec-weight on a synthetic capture,
+    every frame written in order, each batch's count equal to a direct
+    call."""
+    import tempfile
+
+    from scrfd_arcface_facerecognition_tpu_torch.apps import FaceAnalysis
+    from scrfd_arcface_facerecognition_tpu_torch.apps import realtime
+    from scrfd_arcface_facerecognition_tpu_torch.models import graph_models
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    ns, hs, ws = FACADE["static"]
+    rng = np.random.default_rng(12)                  # phase 12's images
+    static = [rng.integers(0, 256, (hs, ws, 3), dtype=np.uint8)
+              for _ in range(ns)]
+    app = FaceAnalysis(det_onnx=paths["det_10g"], rec_onnx=paths["w600k_r50"],
+                       max_det=FACADE["max_det"], device=DEV)
+    app.prepare(det_size=FACADE["det_size"])
+    if not (isinstance(app.detector.model, graph_models.SCRFDGraphModule)
+            and isinstance(app.embedder.model,
+                           graph_models.ArcFaceGraphModule)):
+        fail("facade: det_onnx / rec_onnx did not give the graph models")
+    t = time.perf_counter()
+    got = app.get_batch(static)
+    torch.cuda.synchronize()
+    fa_ms = (time.perf_counter() - t) * 1e3
+    unit_embeddings(got, "facade on the ONNX files")
+    fa_dtype = str(app.dtype).replace("torch.", "")
+    del app
+
+    n, batch = ONNX_EXEC["realtime"]
+    cap = SyntheticCapture(n, hs, ws, seed=151)
+    writer = RecordingWriter()
+    made, seen = [], []
+    saved = {k: getattr(realtime, k) for k in (
+        "FacePipeline", "open_capture", "open_writer", "annotate_batch",
+        "read_image")}
+
+    def recorded(**kw):
+        made.append(saved["FacePipeline"](**kw))
+        return made[-1]
+
+    realtime.FacePipeline = recorded
+    realtime.open_capture = lambda source: cap
+    realtime.open_writer = lambda path, fps, size: writer
+    realtime.annotate_batch = lambda frames, out, names, colors: seen.append(
+        (frames.copy(), out))
+    realtime.read_image = lambda path: np.load(path)
+    try:
+        with tempfile.TemporaryDirectory() as tmp, k1_capture() as k1_calls:
+            faces = os.path.join(tmp, "faces")
+            os.makedirs(faces)
+            np.save(os.path.join(faces, "person0.npy"),
+                    rng.integers(0, 255, (240, 240, 3), np.uint8))
+            args = realtime.parse_args([
+                "--source", "synthetic", "--faces-dir", faces,
+                "--batch", str(batch), "--output", os.path.join(tmp, "o.mp4"),
+                "--det-weight", paths["det_10g"],
+                "--rec-weight", paths["w600k_r50"], "--log-level", "WARNING"])
+            t = time.perf_counter()
+            res = realtime.run(args, device=DEV)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t
+    finally:
+        for k, v in saved.items():
+            setattr(realtime, k, v)
+    pipe = made[0]
+    if not isinstance(pipe.detector.model, graph_models.SCRFDGraphModule):
+        fail("realtime: --det-weight did not give the graph model")
+    if res["frames"] != n or writer.sums != cap.sums:
+        fail(f"realtime on the ONNX files: {res['frames']} of {n} frames, "
+             f"in order {writer.sums == cap.sums}")
+    for i, (fr, o) in enumerate(seen):
+        if not torch.equal(o.count, pipe(fr).count):
+            fail(f"realtime on the ONNX files, batch {i}: counts differ "
+                 f"from a direct call")
+    err, what = k1_on_path(torch, wa, k1_calls)
+    rep.say(f"onnx executor entry points: FaceAnalysis(det_onnx=, "
+            f"rec_onnx=) ({fa_dtype}) get_batch of phase 12's "
+            f"{ns}x{hs}x{ws} images in {fa_ms:.2f} ms, "
+            f"{sum(len(f) for f in got)} faces, every embedding a finite "
+            f"unit 512-vector; realtime.run --det-weight / --rec-weight "
+            f"the stand-in files on a {n}-frame {hs}x{ws} capture, batch "
+            f"{batch}: {res['frames']} frames written in order, "
+            f"{res['targets']} target, {len(seen)} batches each with the "
+            f"count of a direct call, {run_s:.2f} s with set-up; K1 vs plain "
+            f"on the run's inputs, {what}: max abs err {err:.6g} u8")
+    return dict(err=err, facade_ms=fa_ms)
+
+
 def main():
     import torch
 
@@ -2991,15 +3478,19 @@ def main():
     phase_bf16_checkpoints(torch, rep)
     rt = phase_realtime(torch, rep)
 
-    # 15. kernels
+    # 15. the ONNX executor path
+    ox = phase_onnx_exec(torch, rep, bf["bench"])
+
+    # 16. kernels
     t2 = gal["times"]
     kernels = [{
         "name": wa.NAME, "route": "cuda",
         "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/warp_align.cu",
         "replaces": "scrfd_arcface_facerecognition_tpu/ops/pallas_warp.py:430",
-        "launches": launches + bf["launches"] + rt["launches"],
+        "launches": launches + bf["launches"] + rt["launches"]
+        + ox["launches"],
         "max_abs_err": max(err3, err4, sp["err1"], fa["err"], eng["err"],
-                           bf["err"], rt["err"]),
+                           bf["err"], rt["err"], ox["err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     }, {

@@ -47,8 +47,9 @@ class FaceAnalysis:
     """Drop-in facade: FaceAnalysis(name=...) / prepare / get.
 
     Weights come in as Flax-layout numpy trees (``det_variables`` /
-    ``rec_variables``, see ``models/weights.py``); without them the
-    weights are the seeded init. Runs on the CUDA card unless
+    ``rec_variables``, see ``models/weights.py``) or as released ``.onnx``
+    files run by the graph executor (``det_onnx`` / ``rec_onnx``); without
+    either the weights are the seeded init. Runs on the CUDA card unless
     ``device="cpu"`` is passed. ``dtype=None`` computes in bfloat16 on the
     card and in float32 on the CPU, as the JAX facade picks bfloat16 for
     its accelerator; the weights stay float32 either way.
@@ -61,11 +62,6 @@ class FaceAnalysis:
                  chunk: int = 16, det_onnx: Optional[str] = None,
                  rec_onnx: Optional[str] = None,
                  pipeline_kwargs: Optional[dict] = None, device=None):
-        if det_onnx is not None or rec_onnx is not None:
-            raise NotImplementedError(
-                "det_onnx / rec_onnx: the ONNX graph executor is not ported "
-                "yet (ROADMAP.md queue 1, item 6); load released weights "
-                "with models.config_from_graph.variables_from_onnx instead")
         self.device = resolve_device(device)
         if dtype is None:
             dtype = (torch.bfloat16 if self.device.type == "cuda"
@@ -74,11 +70,14 @@ class FaceAnalysis:
         self.name = name
         self.chunk = chunk  # images a static batch (bounds device memory:
         # a batch embeds up to chunk * max_det 112x112 crops at once)
+        # det_onnx / rec_onnx: released .onnx files run through the graph
+        # executor, as insightface runs the buffalo_l files
         self.detector = Detector(det_variant, variables=det_variables,
                                  dtype=dtype, seed=seed, max_det=max_det,
-                                 device=self.device)
+                                 onnx_path=det_onnx, device=self.device)
         self.embedder = Embedder(rec_variant, variables=rec_variables,
-                                 dtype=dtype, seed=seed, device=self.device)
+                                 dtype=dtype, seed=seed, onnx_path=rec_onnx,
+                                 device=self.device)
         self.det_thresh = 0.5
         # the pipeline's bucketed embed path; its gallery stays empty and
         # the match outputs are ignored

@@ -15,11 +15,11 @@ names a caller can replace: ``read_image`` (gallery photos),
 ``open_capture`` (the source), ``open_writer`` (the output),
 ``annotate_batch`` (drawing) and ``show_frame`` (``--show``).
 
-Not ported yet: ``--disagg`` above 0 (multi-device serving, ROADMAP.md
-queue 1, item 8) and weight files that exist at ``--det-weight`` /
-``--rec-weight`` (the ONNX graph executor, item 6); both raise
-NotImplementedError. Without the files the variants are the seeded
-models the file names name, as in the JAX app.
+Weight files that exist at ``--det-weight`` / ``--rec-weight`` run
+through the ONNX graph executor (``models/onnx_exec.py``); without the
+files the variants are the seeded models the file names name, as in the
+JAX app. Not ported yet: ``--disagg`` above 0 (multi-device serving,
+ROADMAP.md queue 1, item 8), which raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -160,17 +160,15 @@ def run(params: argparse.Namespace, device=None) -> dict:
         raise NotImplementedError(
             f"--disagg {params.disagg}: multi-device serving is not ported "
             f"yet (ROADMAP.md queue 1, item 8); run with --disagg 0")
-    found = [p for p in (params.det_weight, params.rec_weight)
-             if os.path.exists(p)]
-    if found:
-        raise NotImplementedError(
-            f"{found}: running released .onnx graphs needs the ONNX graph "
-            f"executor, not ported yet (ROADMAP.md queue 1, item 6); load "
-            f"them with models.config_from_graph.variables_from_onnx into a "
-            f"FacePipeline instead")
+    # weight files that exist run as graphs (the graph executor); else the
+    # seeded variants the file names name
     pipeline = FacePipeline(
         det_variant=variant_from_path(params.det_weight, "det_10g"),
         rec_variant=variant_from_path(params.rec_weight, "w600k_r50"),
+        det_onnx=(params.det_weight if os.path.exists(params.det_weight)
+                  else None),
+        rec_onnx=(params.rec_weight if os.path.exists(params.rec_weight)
+                  else None),
         conf_thres=params.confidence_thresh,
         similarity_thresh=params.similarity_thresh,
         dtype=torch.bfloat16, device=device)

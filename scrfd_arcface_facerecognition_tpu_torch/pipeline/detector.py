@@ -15,6 +15,7 @@ import torch
 
 from .. import ops
 from ..device import resolve_device
+from ..models.graph_models import scrfd_from_onnx
 from ..models.init_utils import seeded_init_
 from ..models.scrfd import SCRFD_CONFIGS, SCRFDConfig, SCRFDNet
 from ..models.weights import load_flax_variables
@@ -214,9 +215,11 @@ class Detector:
 
     ``variables`` is a Flax tree of numpy arrays (``{"params",
     "batch_stats"}``, see ``models/weights.py``); without it the weights
-    are the seeded init. ``dtype`` is the compute dtype (float32 or
-    bfloat16; the weights stay float32). The model lives on ``device``:
-    the CUDA card unless ``device="cpu"`` is passed.
+    are the seeded init. ``onnx_path`` runs a released ``.onnx`` graph
+    through the executor instead (``models/graph_models.py``: the graph is
+    the model); it takes no ``variables``. ``dtype`` is the compute dtype
+    (float32 or bfloat16; the weights stay float32). The model lives on
+    ``device``: the CUDA card unless ``device="cpu"`` is passed.
     """
 
     def __init__(self, variant: str = "det_10g",
@@ -226,14 +229,19 @@ class Detector:
                  pre_nms: int = 256, max_det: int = 64,
                  dtype: torch.dtype = torch.float32, seed: int = 0,
                  tight_canvas: bool = False,
-                 config: Optional[SCRFDConfig] = None, device=None):
+                 config: Optional[SCRFDConfig] = None,
+                 onnx_path: Optional[str] = None, device=None):
         self.device = resolve_device(device)
         self.dtype = dtype
-        if config is None:
+        if onnx_path is not None and variables is not None:
+            raise ValueError(
+                "pass either variables or onnx_path, not both: the graph "
+                "path would silently discard the given weights")
+        if onnx_path is None and config is None:
             if variant not in SCRFD_CONFIGS:
                 raise ValueError(f"unknown SCRFD variant {variant!r}")
             config = SCRFD_CONFIGS[variant]
-        self.variant = config.name
+        self.variant = variant if onnx_path is not None else config.name
         self.input_size = (input_size[1], input_size[0])  # stored as (h, w)
         self.conf_thres = conf_thres
         self.iou_thres = iou_thres
@@ -242,6 +250,10 @@ class Detector:
         # False: the square canvas of the single-image reference API;
         # FacePipeline trims the pad band instead
         self.tight_canvas = tight_canvas
+        if onnx_path is not None:
+            self.model = scrfd_from_onnx(onnx_path, dtype=dtype,
+                                         device=self.device).eval()
+            return
         model = SCRFDNet(config, dtype=dtype)
         if variables is None:
             seeded_init_(model, seed)

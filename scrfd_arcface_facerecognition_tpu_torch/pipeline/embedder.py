@@ -17,6 +17,7 @@ from torch import nn
 from .. import ops
 from ..device import resolve_device
 from ..models.arcface import ARCFACE_CONFIGS, ArcFaceConfig, arcface_from_config
+from ..models.graph_models import arcface_from_onnx
 from ..models.init_utils import seeded_init_
 from ..models.weights import load_flax_variables
 from ..stages import stage
@@ -63,7 +64,9 @@ class Embedder:
     """User-facing ArcFace embedder.
 
     ``variables`` is a Flax tree of numpy arrays; without it the weights
-    are the seeded init. ``dtype`` is the compute dtype (float32 or
+    are the seeded init. ``onnx_path`` runs a released ``.onnx`` graph
+    through the executor instead (it takes no ``variables``; the embedding
+    width is read from the graph). ``dtype`` is the compute dtype (float32 or
     bfloat16; the weights stay float32): K1 still writes float32 crops,
     the model casts them, and the embedding leaves it as float32. The
     model lives on ``device``: the CUDA card unless ``device="cpu"`` is
@@ -73,15 +76,26 @@ class Embedder:
     def __init__(self, variant: str = "w600k_r50",
                  variables: Optional[Any] = None,
                  dtype: torch.dtype = torch.float32, seed: int = 0,
-                 config: Optional[ArcFaceConfig] = None, device=None):
+                 config: Optional[ArcFaceConfig] = None,
+                 onnx_path: Optional[str] = None, device=None):
         self.device = resolve_device(device)
         self.dtype = dtype
+        self.input_size = (112, 112)
+        if onnx_path is not None:
+            if variables is not None:
+                raise ValueError(
+                    "pass either variables or onnx_path, not both: the "
+                    "graph path would silently discard the given weights")
+            self.variant = variant
+            self.model = arcface_from_onnx(onnx_path, dtype=dtype,
+                                           device=self.device).eval()
+            self.emb_dim = self.model.emb_dim(self.input_size)
+            return
         if config is None:
             if variant not in ARCFACE_CONFIGS:
                 raise ValueError(f"unknown ArcFace variant {variant!r}")
             config = ARCFACE_CONFIGS[variant]
         self.variant = config.name
-        self.input_size = (112, 112)
         self.emb_dim = config.emb_dim
         model = arcface_from_config(config, dtype)
         if variables is None:

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import logging
 from collections import deque
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -174,7 +174,8 @@ class FacePipeline:
     detector or embedder must live on the same kind of device. ``dtype``
     is the models' compute dtype when the pipeline builds them (float32 or
     bfloat16); with a bfloat16 detector the letterbox computes in bfloat16
-    too.
+    too. ``det_onnx`` / ``rec_onnx`` run released ``.onnx`` graphs through
+    the executor in place of the ``det_variant`` / ``rec_variant`` models.
     """
 
     def __init__(self, detector: Detector = None, embedder: Embedder = None,
@@ -184,14 +185,16 @@ class FacePipeline:
                  pre_nms: int = 256, max_det: int = 16,
                  gallery_capacity: int = 512,
                  dtype: torch.dtype = torch.float32, seed: int = 0,
-                 tight_canvas: bool = True, device=None):
+                 tight_canvas: bool = True, det_onnx: Optional[str] = None,
+                 rec_onnx: Optional[str] = None, device=None):
         self.device = resolve_device(device)
         self.detector = detector or Detector(
             det_variant, conf_thres=conf_thres, iou_thres=iou_thres,
             pre_nms=pre_nms, max_det=max_det, dtype=dtype, seed=seed,
-            device=self.device)
+            onnx_path=det_onnx, device=self.device)
         self.embedder = embedder or Embedder(rec_variant, dtype=dtype,
-                                             seed=seed, device=self.device)
+                                             seed=seed, onnx_path=rec_onnx,
+                                             device=self.device)
         for part in (self.detector, self.embedder):
             if part.device.type != self.device.type:
                 raise ValueError(f"{type(part).__name__} lives on "

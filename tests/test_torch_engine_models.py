@@ -11,6 +11,7 @@ engine assigns as well as creates. Where a deciding similarity or a
 detection score lies within 1e-4 of its threshold, a failure says so: a
 threshold tie is not a port fault.
 """
+import logging
 import os
 import sys
 
@@ -31,6 +32,7 @@ from scrfd_arcface_facerecognition_tpu_torch.utils import config as tcfg
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO)
 from chip_smoke import engine_record, record_diff  # noqa: E402
+from test_torch_bf16 import jax_reference  # noqa: E402
 from torch_cores import shared_cores  # noqa: E402,F401
 
 pytestmark = pytest.mark.usefixtures("shared_cores")
@@ -160,3 +162,129 @@ def test_engine_decisions_match_jax_on_trained_checkpoints(stacks, tmp_path):
     assert res["no_faces"] < len(images), res      # not all "no face"
     assert res["new_persons"] > 0 and res["recognized"] \
         + res["duplicate_faces"] > 0, res
+
+
+# ----------------------------------------------------------- at bfloat16
+#
+# The port's engine on the port's bf16 facade against the JAX engine on
+# the JAX bf16 facade (in a child process whose XLA rounds every bf16 op:
+# ``tests/test_torch_bf16.py`` ``jax_reference``), on the same checkpoints
+# and visits: each visit's decision and the gate that turned a face away
+# are equal, the records' floats within 1e-2 (the bf16 budget holds scores
+# to 2 ulps of 1, 0.0078, and the quality record's blur score is the score
+# times 1.2). The engine's gates are set to turn some of these visits away
+# (a confidence gate above the detector's threshold, a side-face decision
+# at a score of 2), so that the gates' verdicts are compared, not only the
+# faces they let through.
+
+BF16_TOL = 1e-2
+GATED = {"face_detection": {"confidence_threshold": 0.39},
+         "side_face_detection": {"decision_threshold": 2}}
+GATES = (("face confidence too low in: ", "confidence"),
+         ("side face rejected in: ", "side face"))
+
+
+class _Gates:
+    """Each visit's gate verdict, from the engine's INFO records."""
+
+    def __init__(self, logger_name):
+        self.verdicts = {}
+        self.logger = logging.getLogger(logger_name)
+        verdicts = self.verdicts
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()
+                for prefix, gate in GATES:
+                    if msg.startswith(prefix):
+                        verdicts[msg[len(prefix):]] = gate
+
+        self.handler = Handler(logging.INFO)
+
+    def __enter__(self):
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self.verdicts
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+def _run_engine(Engine, cfg_mod, app, root, images, **kw):
+    """One engine over the visits, its gates set by ``GATED``: (results,
+    record without hashes, {visit url: gate})."""
+    by_url = {f"http://cam/v{i}.jpg": im for i, im in enumerate(images)}
+
+    def loader(src, save_path=None, timeout=30):
+        im = by_url.get(src)
+        return None if im is None else im.copy()
+
+    cfg = cfg_mod.deep_update(cfg_mod.deep_update(cfg_mod.DEFAULT_CONFIG, {
+        **OVERRIDES,
+        "system": {"database_path": os.path.join(root, "face.db"),
+                   "image_cache_dir": os.path.join(root, "cache")}}), GATED)
+    eng = Engine(config=cfg, app=app, image_loader=loader,
+                 results_dir=os.path.join(root, "results"), **kw)
+    with _Gates(Engine.__module__) as gates:
+        res = eng.process_visit_data_from_json(_visits(len(images)),
+                                               save_images=False)
+    return res, _without_hashes(engine_record(eng)), dict(gates)
+
+
+def _jsonable(v):
+    if isinstance(v, bytes):
+        return f"<{len(v)} bytes>"
+    if isinstance(v, np.generic):
+        return v.item()
+    raise TypeError(type(v))
+
+
+def _job_engine_bf16(**images):
+    import json
+    import tempfile
+
+    import jax.numpy as jnp
+
+    det_v, emb_v = _msgpack("det_500m.msgpack"), _msgpack("w600k_mbf.msgpack")
+    ja = JFaceAnalysis(det_variant="det_500m", rec_variant="w600k_mbf",
+                       det_variables=det_v, rec_variables=emb_v, max_det=8,
+                       dtype=jnp.bfloat16)
+    ja.prepare(det_size=(320, 320), det_thresh=CONF)
+    imgs = [images[f"v{i}"] for i in range(len(images))]
+    with tempfile.TemporaryDirectory() as tmp:
+        res, rec, gates = _run_engine(JEngine, jcfg, ja, tmp, imgs)
+    return {"out": np.asarray(json.dumps([res, rec, gates],
+                                         default=_jsonable))}
+
+
+def test_engine_decisions_and_gates_match_jax_at_bf16(tmp_path):
+    import json
+
+    import torch
+
+    images = _images()
+    ref = jax_reference("test_torch_engine_models", "engine_bf16",
+                        **{f"v{i}": im for i, im in enumerate(images)})
+    want_res, want_rec, want_gates = json.loads(str(ref["out"]))
+    det_v, emb_v = _msgpack("det_500m.msgpack"), _msgpack("w600k_mbf.msgpack")
+    ta = TFaceAnalysis(det_variant="det_500m", rec_variant="w600k_mbf",
+                       det_variables=det_v, rec_variables=emb_v, max_det=8,
+                       dtype=torch.bfloat16, device="cpu")
+    ta.prepare(det_size=(320, 320), det_thresh=CONF)
+    res, rec, gates = _run_engine(TEngine, tcfg, ta, str(tmp_path),
+                                  images, device="cpu")
+    res, rec = json.loads(json.dumps([res, rec], default=_jsonable))
+    print("bf16 engines, JAX:", {k: want_res[k] for k in (
+        "new_persons", "recognized", "duplicate_faces", "no_faces")},
+        "gates", want_gates)
+    print("bf16 engines, port:", {k: res[k] for k in (
+        "new_persons", "recognized", "duplicate_faces", "no_faces")},
+        "gates", gates)
+    assert gates == want_gates and set(gates.values()) == {
+        "confidence", "side face"}, (gates, want_gates)
+    diff = (record_diff(want_res, res, BF16_TOL, "results")
+            or record_diff(want_rec, rec, BF16_TOL))
+    assert diff is None, diff
+    assert res["no_faces"] < len(images), res

@@ -390,10 +390,11 @@ def test_power_of_two_padding_leaves_faces_unchanged(apps, mixed_images):
     assert_faces_agree(want, got[:3], "dynamic padded")
 
 
-def test_facade_arguments_and_device(monkeypatch):
+def test_facade_arguments_and_device(monkeypatch, tmp_path):
     """bfloat16 builds bfloat16 models, dtype=None is float32 on the CPU,
-    a dtype the models do not compute in raises; the ONNX executor's
-    arguments raise until it is ported; no card, no facade."""
+    a dtype the models do not compute in raises; ``det_onnx`` /
+    ``rec_onnx`` load the files through the graph executor and run them;
+    no card, no facade."""
     bf = TFaceAnalysis(det_variant="det_500m", rec_variant="w600k_mbf",
                        dtype=torch.bfloat16, device="cpu")
     assert bf.dtype == bf.detector.dtype == bf.embedder.dtype == torch.bfloat16
@@ -402,10 +403,31 @@ def test_facade_arguments_and_device(monkeypatch):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         TFaceAnalysis(det_variant="det_500m", rec_variant="w600k_mbf",
                       dtype=torch.float16, device="cpu")
-    for kw in (dict(det_onnx="det.onnx"), dict(rec_onnx="rec.onnx")):
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-            TFaceAnalysis(det_variant="det_500m", rec_variant="w600k_mbf",
-                          device="cpu", **kw)
+    from scrfd_arcface_facerecognition_tpu_torch.models import graph_models
+    from torch_export import TorchIResNet, TorchSCRFD, export_onnx, seeded
+
+    det, rec = str(tmp_path / "det.onnx"), str(tmp_path / "rec.onnx")
+    export_onnx(seeded(TorchSCRFD(stem=8, blocks=(1, 1, 1, 1),
+                                  planes=(8, 8, 16, 16), neck=8,
+                                  head_feat=16, head_stacks=1), 0),
+                torch.randn(1, 3, 640, 640), det)
+    export_onnx(seeded(TorchIResNet(blocks=(1, 1, 1, 1),
+                                    planes=(8, 8, 16, 16)), 0),
+                torch.randn(1, 3, 112, 112), rec)
+    image = np.random.default_rng(5).integers(0, 255, (96, 128, 3), np.uint8)
+    for kw in (dict(det_onnx=det, rec_onnx=rec), dict(det_onnx=det),
+               dict(rec_onnx=rec)):
+        ta = TFaceAnalysis(det_variant="det_500m", rec_variant="w600k_mbf",
+                           device="cpu", **kw)
+        ta.prepare(det_size=(128, 128), det_thresh=0.0)
+        assert isinstance(ta.detector.model, graph_models.SCRFDGraphModule) \
+            == ("det_onnx" in kw)
+        assert isinstance(ta.embedder.model, graph_models.ArcFaceGraphModule) \
+            == ("rec_onnx" in kw)
+        faces = ta.get_batch([image])[0]
+        assert faces and all(
+            f.embedding.shape == (512,) and np.isfinite(f.embedding).all()
+            for f in faces)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TFaceAnalysis(det_variant="det_500m", rec_variant="w600k_mbf")

@@ -26,7 +26,8 @@ def test_import_leaves_no_jax_in_sys_modules():
         "new = ('apps.face_analysis', 'apps.clustering', 'apps.verification',\n"
         "       'apps.quality', 'apps.metadata_db', 'apps.json_storage',\n"
         "       'utils.config', 'runtime.microbatch', 'runtime.video',\n"
-        "       'utils.drawing', 'apps.realtime')\n"
+        "       'utils.drawing', 'apps.realtime', 'models.onnx_exec',\n"
+        "       'models.graph_models', 'models.preflight')\n"
         "bad += [m for m in new if p.__name__ + '.' + m not in sys.modules]\n"
         "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
@@ -65,7 +66,8 @@ def test_no_module_of_the_port_imports_jax_flax_or_the_jax_package():
                 "apps/__init__.py", "utils/config.py", "utils/__init__.py",
                 "runtime/microbatch.py", "runtime/video.py",
                 "runtime/__init__.py", "utils/drawing.py",
-                "apps/realtime.py"):
+                "apps/realtime.py", "models/onnx_exec.py",
+                "models/graph_models.py", "models/preflight.py"):
         assert mod in names, mod
     for path in files:
         bad = set(_imported_roots(path)) & set(_FORBIDDEN)
@@ -127,7 +129,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     app_args = realtime.parse_args(["--det-weight", "det_500m.onnx",
                                     "--rec-weight", "w600k_mbf.onnx",
                                     "--source", "missing.mp4"])
+    from scrfd_arcface_facerecognition_tpu_torch.models import onnx_model
+
     for make in (FacePipeline, Detector, Embedder, FaceAnalysis,
+                 lambda: Detector(onnx_path="det_500m.onnx"),
+                 lambda: Embedder(onnx_path="w600k_mbf.onnx"),
+                 lambda: FacePipeline(det_onnx="det_500m.onnx",
+                                      rec_onnx="w600k_mbf.onnx"),
+                 lambda: FaceAnalysis(det_onnx="det_500m.onnx",
+                                      rec_onnx="w600k_mbf.onnx"),
+                 lambda: onnx_model("det_500m.onnx"),
                  lambda: SmartFaceEngine(config={}, app=object()),
                  lambda: FaceComparison(config={}, app=object(),
                                         log_file=None),

@@ -10,8 +10,10 @@
   side in its own process, XLA's excess precision off): frame counts and
   target names equal, target embeddings cosine >= 0.999, each batch's
   outputs at the tolerances of ``tests/test_torch_bf16.py``.
-- ``--disagg`` above 0 and weight files that exist raise, naming their
-  ROADMAP items; without a card ``run`` raises.
+- Weight files that exist run through the graph executor (small exported
+  stand-ins); an empty one fails as it does in the JAX app, with the same
+  exception type; ``--disagg`` above 0 raises, naming its ROADMAP item;
+  without a card ``run`` raises.
 """
 import os
 
@@ -174,13 +176,57 @@ def test_annotate_and_drawing_pixel_equal_to_jax():
     np.testing.assert_array_equal(a, b)
 
 
-def test_unported_options_raise_naming_their_items(tmp_path):
+def test_unported_options_raise_naming_their_items(tmp_path, monkeypatch):
+    """--disagg still raises; weight files that exist run as graphs; an
+    empty one raises what the JAX app raises."""
+    from scrfd_arcface_facerecognition_tpu_torch.models import graph_models
+    from torch_export import TorchIResNet, TorchSCRFD, export_onnx, seeded
+
     with pytest.raises(NotImplementedError, match="queue 1, item 8"):
         trt.run(trt.parse_args(["--disagg", "2"]), device="cpu")
-    weight = tmp_path / "det_500m.onnx"
-    weight.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        trt.run(trt.parse_args(["--det-weight", str(weight)]), device="cpu")
+    det, rec = str(tmp_path / "det_10g.onnx"), str(tmp_path / "w600k_r50.onnx")
+    export_onnx(seeded(TorchSCRFD(stem=8, blocks=(1, 1, 1, 1),
+                                  planes=(8, 8, 16, 16), neck=8,
+                                  head_feat=16, head_stacks=1), 0),
+                torch.randn(1, 3, 640, 640), det)
+    export_onnx(seeded(TorchIResNet(blocks=(1, 1, 1, 1),
+                                    planes=(8, 8, 16, 16)), 0),
+                torch.randn(1, 3, 112, 112), rec)
+    video = write_clip(tmp_path / "in.mp4", [
+        np.random.default_rng(i).integers(0, 255, (96, 128, 3), np.uint8)
+        for i in range(5)])
+    import cv2
+
+    faces = tmp_path / "faces"
+    faces.mkdir()
+    cv2.imwrite(str(faces / "ann.png"), np.random.default_rng(9).integers(
+        0, 255, (96, 96, 3), np.uint8))
+    made = []
+    real = trt.FacePipeline
+
+    def recorded(**kw):
+        made.append(real(**kw))
+        return made[-1]
+
+    monkeypatch.setattr(trt, "FacePipeline", recorded)
+    res = trt.run(trt.parse_args([
+        "--source", video, "--faces-dir", str(faces),
+        "--output", str(tmp_path / "out.mp4"), "--batch", "2",
+        "--det-weight", det, "--rec-weight", rec,
+        "--confidence-thresh", "0.0"]), device="cpu")
+    assert res == {"frames": 5, "targets": 1}
+    pipe = made[0]
+    assert isinstance(pipe.detector.model, graph_models.SCRFDGraphModule)
+    assert isinstance(pipe.embedder.model, graph_models.ArcFaceGraphModule)
+    assert pipe.detector.dtype == pipe.embedder.dtype == torch.bfloat16
+    empty = tmp_path / "det_500m.onnx"
+    empty.write_bytes(b"")
+    argv = ["--det-weight", str(empty), "--source", video]
+    with pytest.raises(Exception) as want:
+        jrt.run(jrt.parse_args(argv))
+    with pytest.raises(Exception) as got:
+        trt.run(trt.parse_args(argv), device="cpu")
+    assert type(got.value) is type(want.value) is ValueError, (want, got)
 
 
 def test_run_raises_without_a_card(monkeypatch):

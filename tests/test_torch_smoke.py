@@ -689,3 +689,155 @@ def test_bf16_checkpoints_phase_fails_on_a_wrong_bf16_detector(monkeypatch):
     rep, _, _ = _checkpoints_on_the_cpu(monkeypatch, spoil=spoil)
     with pytest.raises(RuntimeError, match="past the bf16 budget"):
         chip_smoke.phase_bf16_checkpoints(torch, rep)
+
+
+# ------------------------------------------------------ phase 15, rehearsed
+
+
+def _onnx_phase_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 15 at small sizes on the CPU: small exported stand-ins (the
+    detector calibrated, the embedder 512 wide) in place of phase 11's
+    full-width files, the native models loaded from them by the importer;
+    K1 counted where the wrapper would count it."""
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+    from scrfd_arcface_facerecognition_tpu_torch.models.config_from_graph import (
+        variables_from_onnx)
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.pipeline import (
+        Detector, Embedder)
+    from torch_export import (TorchIResNet, TorchSCRFD, calibrate_detector,
+                              export_onnx, seeded)
+
+    paths = {"det_10g": str(tmp_path / "det.onnx"),
+             "w600k_r50": str(tmp_path / "rec.onnx")}
+    export_onnx(calibrate_detector(seeded(TorchSCRFD(
+        stem=8, blocks=(1, 1, 1, 1), planes=(8, 8, 16, 16), neck=8,
+        head_feat=16, head_stacks=1), 0)), torch.randn(1, 3, 640, 640),
+        paths["det_10g"])
+    export_onnx(seeded(TorchIResNet(blocks=(1, 1, 1, 1),
+                                    planes=(8, 8, 16, 16)), 0),
+                torch.randn(1, 3, 112, 112), paths["w600k_r50"])
+    det_cv = variables_from_onnx(paths["det_10g"])
+    rec_cv = variables_from_onnx(paths["w600k_r50"])
+
+    def parts(torch_, dtype, **det_kw):
+        return (Detector(config=det_cv[0], variables=det_cv[1], dtype=dtype,
+                         device="cpu", **det_kw),
+                Embedder(config=rec_cv[0], variables=rec_cv[1], dtype=dtype,
+                         device="cpu"))
+
+    rep, said = _no_card(monkeypatch, wa)
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    crops = ops.warp_align_crops
+
+    def counted(*a, **k):
+        wa.launches += 1
+        return crops(*a, **k)
+
+    monkeypatch.setattr(ops, "warp_align_crops", counted)
+    monkeypatch.setattr(chip_smoke, "standin_onnx", lambda torch_, b: paths)
+    monkeypatch.setattr(chip_smoke, "standin_parts", parts)
+    small = dict(max_num=3, gallery=4, conf=0.5, pre_nms=32, max_det=4)
+    monkeypatch.setattr(chip_smoke, "STANDIN", dict(frames=2, hw=(120, 160),
+                                                    **small))
+    monkeypatch.setattr(chip_smoke, "BENCH", dict(frames=2, hw=(120, 160),
+                                                  depth=2, rounds=1, **small))
+    monkeypatch.setattr(chip_smoke, "FACADE", dict(
+        chip_smoke.FACADE, static=(2, 120, 160), det_size=(128, 128),
+        max_det=4))
+    monkeypatch.setattr(chip_smoke, "ONNX_EXEC", dict(
+        det_canvases=(1, 2), rec_crops=(2, 3), canvas=(64, 96),
+        realtime=(5, 2)))
+    return rep, said
+
+
+def test_onnx_executor_phase_rehearsed_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 15: card (here the CPU) against the CPU and against the
+    native models within the f32 budget, the per-forward costs, bench.py's
+    settings at bf16, K1 counted on the bench rounds and held on the
+    phase's inputs, the facade and the realtime app on the files; the
+    app's replaceable functions restored after it."""
+    from scrfd_arcface_facerecognition_tpu_torch.apps import realtime
+
+    before = (realtime.FacePipeline, realtime.open_capture,
+              realtime.open_writer, realtime.annotate_batch,
+              realtime.read_image)
+    rep, said = _onnx_phase_on_the_cpu(monkeypatch, tmp_path)
+    ox = chip_smoke.phase_onnx_exec(torch, rep, {"frames_per_sec": 1.0})
+    assert ox["launches"] == 2 and ox["err"] == 0.0     # 1 round x depth 2
+    assert all(v <= 1 for v in ox["heads"].values())
+    assert len(ox["costs"]) == 8
+    assert (realtime.FacePipeline, realtime.open_capture,
+            realtime.open_writer, realtime.annotate_batch,
+            realtime.read_image) == before
+    text = "\n".join(said)
+    for start in ("card vs CPU (f32, TF32 off)", "vs the native models",
+                  "per forward at bf16", "not checked on the CPU",
+                  "onnx executor bench path", "the native models in phase "
+                  "13 of this run 1.00", "K1 vs plain on the phase's inputs",
+                  "5 frames written in order"):
+        assert start in text, start
+
+
+def test_onnx_executor_phase_fails_on_a_drifting_graph(monkeypatch,
+                                                       tmp_path):
+    """A card executor whose box distances stray by 1e-3 of their size
+    fails (a), before anything is timed."""
+    rep, _ = _onnx_phase_on_the_cpu(monkeypatch, tmp_path)
+    make = chip_smoke.executor_pipe
+    made = []
+
+    def drifting(torch_, paths, dtype, device, **kw):
+        pipe = make(torch_, paths, dtype, device, **kw)
+        made.append(pipe)
+        if len(made) == 2:                # the card's (phase 15a)
+            graph = pipe.detector.model.model
+            run = graph.forward
+            graph.forward = lambda x: [o * 1.001 if i in (3, 4, 5) else o
+                                       for i, o in enumerate(run(x))]
+        return pipe
+
+    monkeypatch.setattr(chip_smoke, "executor_pipe", drifting)
+    with pytest.raises(RuntimeError, match="executor card vs CPU"):
+        chip_smoke.phase_onnx_exec(torch, rep, {"frames_per_sec": 1.0})
+
+
+def test_f32_face_pairing_names_ties_and_fails_the_rest():
+    """Phase 15's pairing at the f32 budget: a pair within it passes; two
+    overlapping faces of near-equal score that NMS kept one way on each
+    side are an order tie; a face on one side only that ties nothing, or
+    a pair past the budget, fails."""
+    from scrfd_arcface_facerecognition_tpu_torch.pipeline.face_pipeline import (
+        PipelineOutput)
+
+    def out(boxes, scores):
+        n = len(boxes)
+        emb = np.zeros((1, 3, 512), np.float32)
+        emb[0, :, 0] = 1
+        valid = np.arange(3) < n
+        b = np.zeros((1, 3, 4), np.float32)
+        b[0, :n] = boxes
+        s = np.zeros((1, 3), np.float32)
+        s[0, :n] = scores
+        return PipelineOutput(*(torch.from_numpy(a) for a in (
+            b, s, np.zeros((1, 3, 5, 2), np.float32), valid[None],
+            np.asarray([n], np.int32), emb,
+            np.full((1, 3), -1, np.int32), np.zeros((1, 3), np.float32))))
+
+    kw = dict(conf=0.5, cuts=[(0.2,)], iou_thres=0.4, sim=0.4, where="t")
+    a = [[0, 0, 100, 100], [300, 300, 400, 400]]
+    share, n, lone = chip_smoke.hold_f32_faces(
+        torch, out(a, [0.9, 0.8]), out([[0, 0, 100.005, 100], a[1]],
+                                       [0.90005, 0.8]), **kw)
+    assert n == 2 and lone == 0 and 0 < share["px"] <= 1
+    # an order tie: the second face kept one way on each side
+    share, n, lone = chip_smoke.hold_f32_faces(
+        torch, out(a, [0.9, 0.8]),
+        out([a[0], [310, 310, 410, 410]], [0.9, 0.8001]), **kw)
+    assert n == 1 and lone == 2
+    with pytest.raises(RuntimeError, match="no tie"):
+        chip_smoke.hold_f32_faces(torch, out(a, [0.9, 0.8]),
+                                  out([a[0]], [0.9]), **kw)
+    with pytest.raises(RuntimeError, match="shares of the f32 budget"):
+        chip_smoke.hold_f32_faces(torch, out(a, [0.9, 0.8]),
+                                  out(a, [0.9, 0.81]), **kw)
