@@ -175,8 +175,37 @@ non-zero exit if it fails:
    ``--rec-weight`` the stand-in files on a synthetic 16-frame capture:
    every frame written in order, each batch's count equal to a direct
    call;
-16. one JSON line of every kernel's numbers (K1's launches are those of
-   phases 4, 13, 14 and 15).
+16. the camera apps (``CAMERAS``), on phase 11's stand-in files given as
+   ``--det-weight`` / ``--rec-weight`` (the graph executor at bf16):
+   ``apps.multistream.run`` over 4 synthetic cameras (three 1080p, one
+   720p, one ending at half length) and one that does not open, once
+   through decode threads and once through ``--decode-pool`` (2 worker
+   processes, 4 slots a stream of 1080p, the cameras opened in the
+   workers by the top-level ``synthetic_camera``); the writers, the
+   drawing and the photo reader replaced; every live camera's frames
+   written in order at its own size, each round's count, valid and
+   match_idx equal to a direct ``FacePipeline`` call (embeddings cosine
+   >= 0.999), the same rounds from both readers; frames/s of each reader,
+   the pool's start and first-round times; then ``apps.dualstream.run``
+   on a 1080p and a 720p camera for ``CAMERAS["dual_pairs"]`` pairs (the
+   720p frame resized to 1080p); K1 counted around each run and held to
+   its plain version on the runs' inputs;
+17. the web API: ``apps.webapp.make_server`` on 127.0.0.1 (port 0) in a
+   thread over ``SmartFaceEngine`` on phase 12's facade (f32, seeded) and
+   an injected loader: POST /api/process-visits of phase 12's visits, the
+   results and the SQLite rows and results files equal to the same
+   engine driven directly, ms a visit beside phase 12's; the comparisons
+   in one request, ms a pair beside phase 12's; every other route once
+   (``/api/image-base64`` with its reader and encoder replaced: no cv2);
+   K1 counted and held to its plain version on the requests' inputs;
+   with ``serving.microbatch`` on, 8 concurrent comparison requests that
+   must coalesce (batch width > 1) and answer as the sequential ones;
+   the PQ tier through the web (``IdentityApp``, ``ENGINE_PQ``'s visits
+   in POSTs), K2 counted and held to its plain version on every search,
+   the decisions equal to a CPU run's; an ERROR logged by the port fails
+   the phase;
+18. one JSON line of every kernel's numbers (K1's launches are those of
+   phases 4, 13, 14, 15, 16 and 17; K2's those of phases 7 and 17).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside it, the script exits non-zero and prints no
@@ -272,6 +301,11 @@ REALTIME = dict(frames=43, hw=(1080, 1920), batch=8, faces=3, rounds=3,
 # these crop counts; the realtime app's capture (frames, batch)
 ONNX_EXEC = dict(det_canvases=(8, 96), rec_crops=(80, 960), canvas=(384, 640),
                  realtime=(16, 8))
+# phase 16: the camera apps' synthetic cameras (1080p and 720p sizes,
+# frames a camera, the dual app's pairs) and the decode pool (processes,
+# slot bytes)
+CAMERAS = dict(hd=(1080, 1920), sd=(720, 1280), frames=24, dual_pairs=24,
+               workers=2, slot_bytes=1920 * 1080 * 3)
 TOL_CANVAS = 1e-4       # dynamic canvas vs exact-shape letterbox
 TOL_RECORD = 1e-5       # engine floats (similarities), card vs CPU
 
@@ -1593,6 +1627,13 @@ def identity_image(identity, jitter=0, h=240, w=320):
     return img
 
 
+def identity_loader(src, save_path=None, timeout=30):
+    """The identity-coded image for ``http://.../id_<identity>_<jitter>.jpg``
+    (an injected loader: no network, no cv2)."""
+    a, b = src.rsplit("/", 1)[1][3:-4].split("_")
+    return identity_image(int(a), int(b))
+
+
 def identity_embedding(identity, jitter=0, dim=512):
     """A fixed unit vector per identity; a jitter moves it to cosine about
     0.83 (above the grouping thresholds, below the duplicate one)."""
@@ -1627,6 +1668,16 @@ class IdentityApp:
         from scrfd_arcface_facerecognition_tpu_torch.apps import FaceAnalysis
 
         return FaceAnalysis.get_batch(self, images, max_num=max_num)
+
+    def enable_microbatch(self, **kw):
+        from scrfd_arcface_facerecognition_tpu_torch.apps import FaceAnalysis
+
+        return FaceAnalysis.enable_microbatch(self, **kw)
+
+    def disable_microbatch(self):
+        from scrfd_arcface_facerecognition_tpu_torch.apps import FaceAnalysis
+
+        FaceAnalysis.disable_microbatch(self)
 
     def _get_batch_direct(self, images, max_num=0):
         from scrfd_arcface_facerecognition_tpu_torch.apps import Face
@@ -2112,10 +2163,6 @@ def phase_engine_pq(torch, rep):
     pq_visits = engine_visits(cfg["visits"],
                               lambda i: "http://cam/id_%d_%d.jpg" % ident[i])
 
-    def pq_loader(src, save_path=None, timeout=30):
-        a, b = src.rsplit("/", 1)[1][3:-4].split("_")
-        return identity_image(int(a), int(b))
-
     vdb = dict(tier="pq", pq_min_train_rows=cfg["min_train_rows"])
     runs = []                     # (results, ms, K2 launches, tier, record)
     for device in (DEV, "cpu"):
@@ -2124,8 +2171,8 @@ def phase_engine_pq(torch, rep):
                 pq, "pq_adc_scores") as calls:
             pq_adc.launches = 0
             t = time.perf_counter()
-            eng, res = run_engine(tmp, IdentityApp(), pq_loader, pq_visits,
-                                  cfg["batches"], device, **vdb)
+            eng, res = run_engine(tmp, IdentityApp(), identity_loader,
+                                  pq_visits, cfg["batches"], device, **vdb)
             runs.append((res, (time.perf_counter() - t) * 1e3,
                          pq_adc.launches, eng.vector_db.tier,
                          engine_record(eng)))
@@ -2897,23 +2944,7 @@ def phase_realtime(torch, rep):
              f"written in order {writer.sums == cap.sums}")
     if launches <= 0:
         fail("realtime path launched K1 no time")
-    worst_cos, faces = 1.0, 0
-    for i, (frames, out) in enumerate(seen):
-        check_output(torch, out, len(frames), out.valid.shape[1],
-                     f"realtime batch {i}")
-        want = pipe(frames)
-        for name in ("count", "valid", "match_idx"):
-            if not torch.equal(getattr(out, name), getattr(want, name)):
-                fail(f"realtime batch {i}: {name} differs from a direct call")
-        a, b = out.embeddings[out.valid], want.embeddings[want.valid]
-        if len(a):
-            cos = float(((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1)))
-                        .min())
-            worst_cos = min(worst_cos, cos)
-        faces += int(out.valid.sum())
-    if worst_cos < 0.999:
-        fail(f"realtime: embeddings differ from a direct call, cos "
-             f"{worst_cos}")
+    worst_cos, faces = hold_to_direct(torch, pipe, seen, "realtime")
     err, what = k1_on_path(torch, wa, k1_calls)
     rep.say(f"realtime: run() on a synthetic {n}-frame {h}x{w} capture "
             f"through BatchedFrameReader (native ring: "
@@ -3312,7 +3343,7 @@ def phase_onnx_exec(torch, rep, native_bench):
     fa = phase_onnx_entry_points(torch, rep, paths)
     rep.say(f"onnx executor phase done in {time.perf_counter() - t0:.1f} s")
     return dict(launches=launches, err=max(err, fa["err"]), fps=s_[len(s_) // 2],
-                heads=heads, share=share, costs=costs)
+                heads=heads, share=share, costs=costs, paths=paths)
 
 
 def phase_onnx_entry_points(torch, rep, paths):
@@ -3406,6 +3437,571 @@ def phase_onnx_entry_points(torch, rep, paths):
     return dict(err=err, facade_ms=fa_ms)
 
 
+# ---------------------------------------------------------------------
+# phase 16: the camera apps
+
+
+def synthetic_camera(source):
+    """The camera apps' opener in phase 16: ``"cam:<seed>:<frames>:<h>:<w>:
+    <fps>"`` -> a SyntheticCapture; ``"cam:down"`` -> a capture that did
+    not open (cv2's shape for a camera that is down). Defined at the top
+    level: the decode pool's workers unpickle it by name."""
+    if source == "cam:down":
+        cap = SyntheticCapture(0, 1, 1)
+        cap.released = True
+        return cap
+    _, seed, n, h, w, fps = source.split(":")
+    return SyntheticCapture(int(n), int(h), int(w), fps=float(fps),
+                            seed=int(seed))
+
+
+def camera_sources():
+    """Phase 16's cameras: (source, frames, h, w), one of them down (0
+    frames) and one ending at half length."""
+    c = CAMERAS
+    (hh, hw), (sh, sw), n = c["hd"], c["sd"], c["frames"]
+    cams = [(160, n, hh, hw), (161, n // 2, hh, hw), (162, n, sh, sw),
+            (163, n, hh, hw)]
+    out = [(f"cam:{seed}:{k}:{h}:{w}:25", k, h, w) for seed, k, h, w in cams]
+    out.insert(2, ("cam:down", 0, 0, 0))
+    return out
+
+
+class AppRecorder:
+    """The camera apps' replaceable names for one run: the pipeline they
+    build (kept), the drawing (each round's frames and outputs kept, with
+    the time), writers that keep each file's frame sums, size and rate,
+    photos read with ``np.load``."""
+
+    def __init__(self, realtime):
+        self.realtime = realtime
+        self.saved = {k: getattr(realtime, k) for k in (
+            "FacePipeline", "open_capture", "open_writer", "annotate_batch",
+            "read_image")}
+        self.made, self.seen, self.files = [], [], {}
+
+    def __enter__(self):
+        rt, real = self.realtime, self.saved["FacePipeline"]
+
+        def made(**kw):
+            self.made.append(real(**kw))
+            return self.made[-1]
+
+        def open_writer(path, fps, size):
+            w = self.files[os.path.basename(path)] = RecordingWriter()
+            w.fps, w.size = fps, tuple(size)
+            return w
+
+        rt.FacePipeline = made
+        rt.open_capture = synthetic_camera
+        rt.open_writer = open_writer
+        rt.annotate_batch = lambda frames, out, names, colors: (
+            self.seen.append((frames.copy(), out, time.perf_counter())))
+        rt.read_image = lambda path: np.load(path)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.realtime, k, v)
+
+    def fps(self):
+        """Frames a second from the first round's drawing to the last."""
+        s = self.seen
+        return (sum(len(f) for f, _, _ in s[1:])
+                / max(s[-1][2] - s[0][2], 1e-9)) if len(s) > 1 else 0.0
+
+
+def hold_to_direct(torch, pipe, seen, what):
+    """Each round's count, valid and match_idx equal to a direct call of
+    ``pipe`` on the same frames, embeddings cosine >= 0.999; -> (the
+    least cosine, faces)."""
+    worst, faces = 1.0, 0
+    for i, (frames, out, *_) in enumerate(seen):
+        check_output(torch, out, len(frames), out.valid.shape[1],
+                     f"{what} round {i}")
+        want = pipe(frames, max_num=0)
+        for name in ("count", "valid", "match_idx"):
+            if not torch.equal(getattr(out, name), getattr(want, name)):
+                fail(f"{what} round {i}: {name} differs from a direct call")
+        a, b = out.embeddings[out.valid], want.embeddings[want.valid]
+        if len(a):
+            worst = min(worst, float(((a * b).sum(-1) / (
+                a.norm(dim=-1) * b.norm(dim=-1))).min()))
+        faces += int(out.valid.sum())
+    if worst < 0.999:
+        fail(f"{what}: embeddings differ from a direct call, cos {worst}")
+    return worst, faces
+
+
+def phase_camera_apps(torch, rep, paths):
+    """16: ``multistream.run`` over ``CAMERAS`` through decode threads and
+    through the decode pool, and ``dualstream.run`` on a 1080p and a 720p
+    camera, on the stand-in files at bf16 through the graph executor."""
+    import tempfile
+
+    from scrfd_arcface_facerecognition_tpu_torch.apps import (
+        dualstream, multistream, realtime)
+    from scrfd_arcface_facerecognition_tpu_torch.models import graph_models
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.ops.resize import (
+        resize_bilinear_u8_exact)
+    from scrfd_arcface_facerecognition_tpu_torch.runtime import decode_pool
+
+    c = CAMERAS
+    cams = camera_sources()
+    live = [(i, k, h, w) for i, (_, k, h, w) in enumerate(cams) if k]
+    want = {i: [frame_sum(f) for f in synthetic_camera(src).frames]
+            for i, (src, k, _, _) in enumerate(cams) if k}
+    runs, pools, k1_calls, launches = {}, [], [], 0
+    real_pool = decode_pool.DecodePool
+
+    def kept_pool(*a, **k):
+        pools.append(real_pool(*a, **k))
+        return pools[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        faces = os.path.join(tmp, "faces")
+        os.makedirs(faces)
+        np.save(os.path.join(faces, "person0.npy"),
+                np.random.default_rng(16).integers(0, 255, (240, 240, 3),
+                                                   np.uint8))
+        weights = ["--det-weight", paths["det_10g"], "--rec-weight",
+                   paths["w600k_r50"], "--faces-dir", faces]
+        for reader in ("threads", "pool"):
+            argv = ["--sources", *(s for s, *_ in cams), "--output-dir",
+                    os.path.join(tmp, reader)] + weights
+            if reader == "pool":
+                argv += ["--decode-pool", "--decode-workers",
+                         str(c["workers"]), "--slot-bytes",
+                         str(c["slot_bytes"])]
+            decode_pool.DecodePool = kept_pool
+            try:
+                with AppRecorder(realtime) as rec, k1_capture() as calls:
+                    wa.launches = 0
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    res = multistream.run(multistream.parse_args(argv),
+                                          device=DEV)
+                    torch.cuda.synchronize()
+                    run_s = time.perf_counter() - t
+                    n_k1 = wa.launches
+            finally:
+                decode_pool.DecodePool = real_pool
+            launches += n_k1
+            k1_calls += calls
+            runs[reader] = (res, rec, run_s, n_k1)
+
+        # the dual app on a 1080p and a 720p camera
+        (hh, hw), (sh, sw), n = c["hd"], c["sd"], c["dual_pairs"]
+        dual_src = (f"cam:164:{n}:{hh}:{hw}:25", f"cam:165:{n}:{sh}:{sw}:25")
+        argv = ["--source1", dual_src[0], "--source2", dual_src[1],
+                "--output", os.path.join(tmp, "both.mp4"),
+                "--reconnect-delay", "0"] + weights
+        with AppRecorder(realtime) as dual, k1_capture() as calls:
+            wa.launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            dres = dualstream.run(dualstream.parse_args(argv), device=DEV)
+            torch.cuda.synchronize()
+            dual_s = time.perf_counter() - t
+            dual_k1 = wa.launches
+        launches += dual_k1
+        k1_calls += calls
+
+    # the multi-camera app: every frame of every live camera written, in
+    # order, at the camera's own size; the same rounds from both readers
+    rounds = {}
+    for reader, (res, rec, run_s, n_k1) in runs.items():
+        pipe = rec.made[0]
+        if not isinstance(pipe.detector.model, graph_models.SCRFDGraphModule) \
+                or pipe.detector.dtype != torch.bfloat16:
+            fail(f"camera apps ({reader}): the pipeline is not the graph "
+                 f"executor at bf16")
+        total = sum(k for _, k, _, _ in live)
+        if res["frames"] != total or n_k1 <= 0:
+            fail(f"camera apps ({reader}): {res['frames']} of {total} frames "
+                 f"served, K1 launches {n_k1}")
+        for i, k, h, w in live:
+            wr = rec.files.get(f"stream_{i}.mp4")
+            if wr is None or wr.sums != want[i] or wr.size != (w, h) \
+                    or not wr.released:
+                fail(f"camera apps ({reader}): stream {i} written "
+                     f"{None if wr is None else (len(wr.sums), wr.size)}, "
+                     f"not its {k} frames in order at {w}x{h}")
+        if "stream_2.mp4" in rec.files:
+            fail(f"camera apps ({reader}): the camera that is down was "
+                 f"written")
+        cos, faces = hold_to_direct(torch, pipe, rec.seen,
+                                    f"camera apps ({reader})")
+        rounds[reader] = [frame_sum(f) for f, _, _ in rec.seen]
+        runs[reader] = dict(res=res, fps=rec.fps(), run_s=run_s, k1=n_k1,
+                            cos=cos, faces=faces, n_rounds=len(rec.seen),
+                            sizes=sorted({len(f) for f, _, _ in rec.seen}))
+    if rounds["threads"] != rounds["pool"]:
+        fail("camera apps: the decode threads and the decode pool gave "
+             "different rounds")
+    pool = pools[0]
+    for reader, r in runs.items():
+        rep.say(f"camera apps: multistream.run ({reader}) over "
+                f"{len(live)} synthetic cameras and one that does not open "
+                f"({c['hd'][1]}x{c['hd'][0]} x3, {c['sd'][1]}x{c['sd'][0]} "
+                f"x1, one ending at {c['frames'] // 2} of {c['frames']} "
+                f"frames), the "
+                f"stand-in files at bf16 through the executor: "
+                f"{r['res']['frames']} frames in {r['n_rounds']} rounds of "
+                f"{r['sizes']} streams, {r['fps']:.2f} frames/s from the "
+                f"first round's drawing to the last (the run "
+                f"{r['run_s']:.2f} s with set-up); every stream written in "
+                f"order at its own size; {r['faces']} faces; each round's "
+                f"count / valid / match_idx equal to a direct call, min "
+                f"cosine {r['cos']:.6f}; K1 launches {r['k1']}")
+    rep.say(f"camera apps: the decode pool: {pool.n_workers} workers, "
+            f"{pool.slots_per_stream} slots a stream of {pool.slot_bytes} B; "
+            f"the workers' start calls {pool.start_s:.3f} s, its first "
+            f"round {pool.first_round_s:.3f} s after its start; the same "
+            f"rounds as the decode threads (every frame's sum)")
+
+    # the dual app: every pair served, the 720p frame resized to 1080p
+    pipe = dual.made[0]
+    (hh, hw) = c["hd"]
+    left = [frame_sum(f) for f in synthetic_camera(dual_src[0]).frames]
+    wr = dual.files.get("both.mp4")
+    if (dres["frames"] != 2 * n or len(dual.seen) != n or wr is None
+            or len(wr.sums) != n or wr.size != (2 * hw, hh) or dual_k1 <= 0):
+        fail(f"dual app: {dres['frames']} frames, {len(dual.seen)} pairs, "
+             f"written {None if wr is None else (len(wr.sums), wr.size)}, "
+             f"K1 launches {dual_k1}")
+    right = synthetic_camera(dual_src[1]).frames
+    for i, (frames, _, _) in enumerate(dual.seen):
+        # the card's resize against the same arithmetic on the host
+        want_right = resize_bilinear_u8_exact(torch.from_numpy(right[i]),
+                                              (hh, hw)).numpy()
+        if frames.shape != (2, hh, hw, 3) or frame_sum(
+                frames[0]) != left[i] or not np.array_equal(frames[1],
+                                                            want_right):
+            fail(f"dual app: pair {i} is not the first camera's frame "
+                 f"beside the second's resized")
+    cos, faces = hold_to_direct(torch, pipe, dual.seen, "dual app")
+    err, what = k1_on_path(torch, wa, k1_calls)
+    rep.say(f"camera apps: dualstream.run on a {hw}x{hh} and a "
+            f"{c['sd'][1]}x{c['sd'][0]} camera: {n} pairs (the second "
+            f"resized on the card by ops.resize_bilinear_u8_exact, equal to "
+            f"the host's) in {dual_s:.2f} s "
+            f"with set-up, {dual.fps():.2f} frames/s from the first pair's "
+            f"drawing to the last; "
+            f"{faces} faces, each pair equal to a direct call, min cosine "
+            f"{cos:.6f}; K1 launches {dual_k1}; K1 vs plain on the three "
+            f"runs' inputs, {what}: max abs err {err:.6g} u8 (tolerance "
+            f"{TOL_U8})")
+    return dict(launches=launches, err=err,
+                fps={r: v["fps"] for r, v in runs.items()},
+                dual_fps=dual.fps(), start_s=pool.start_s,
+                first_round_s=pool.first_round_s)
+
+
+# ---------------------------------------------------------------------
+# phase 17: the web API
+
+
+class WebClient:
+    """Requests to the server at ``base``: each answer's status, content
+    type and body (JSON decoded where it is JSON)."""
+
+    def __init__(self, base):
+        self.base = base
+
+    def __call__(self, method, path, body=None):
+        import urllib.error
+        import urllib.request
+
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(
+            self.base + path, data=data, method=method,
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                status, ctype, raw = (r.status, r.headers["Content-Type"],
+                                      r.read())
+        except urllib.error.HTTPError as e:
+            status, ctype, raw = (e.code, e.headers["Content-Type"],
+                                  e.read())
+        if ctype == "application/json":
+            raw = json.loads(raw)
+        return status, ctype, raw
+
+
+@contextlib.contextmanager
+def web_server(engine, comparison, tmp):
+    """``make_server`` on 127.0.0.1, port 0, serving ``engine`` in a
+    thread; yields a WebClient; shut down and joined after the block."""
+    import threading
+
+    from scrfd_arcface_facerecognition_tpu_torch.apps.webapp import (
+        WebApp, make_server)
+
+    app = WebApp(engine, comparison=comparison,
+                 api_config_path=os.path.join(tmp, "api_config.txt"),
+                 results_dir=tmp, allowed_image_dirs=[tmp])
+    server = make_server(app, host="127.0.0.1", port=0)
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        yield WebClient(f"http://127.0.0.1:{server.server_address[1]}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=10)
+
+
+def comparison_records(n, prefix="a"):
+    return [{"id": f"r{i}", "image": f"http://cam/{prefix}_{i}.jpg",
+             "refImage": f"http://cam/{'a' if i % 3 == 0 else 'b'}_{i}.jpg",
+             "isConverted": i % 2 == 0, "branchId": "b1"} for i in range(n)]
+
+
+def phase_web(torch, rep, app, direct):
+    """17: the web API on the card: (a) the engine on phase 12's facade
+    over HTTP against the same engine driven directly, then every other
+    route once; (b) micro-batched concurrent comparisons; (c) the PQ tier
+    through the web, its decisions equal to the CPU's. ``direct`` holds
+    phase 12's ms a visit and a pair."""
+    import base64
+    import tempfile
+    import threading
+
+    from scrfd_arcface_facerecognition_tpu_torch.apps import (
+        FaceComparison, SmartFaceEngine, webapp)
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import pq, pq_adc
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.utils.config import (
+        DEFAULT_CONFIG, deep_update)
+
+    hw, n, npairs = FACADE["visit_hw"], FACADE["visits"], FACADE["pairs"]
+    loader = (lambda src, save_path=None, timeout=30: loader_image(src, hw))
+    pair_loader = (lambda src: loader_image(src, hw))
+    visits = engine_visits(n, lambda i: f"http://cam/visit_{i}.jpg")
+
+    def engine(tmp, **cfg):
+        return SmartFaceEngine(
+            config=deep_update(engine_config(tmp), cfg), app=app,
+            image_loader=loader, results_dir=os.path.join(tmp, "results"),
+            device=DEV)
+
+    def comparison():
+        return FaceComparison(config=DEFAULT_CONFIG, app=app,
+                              image_loader=pair_loader, log_file=None,
+                              device=DEV)
+
+    seen = {}
+    saved = (webapp.read_image, webapp.encode_jpeg)
+    webapp.read_image = lambda path: np.load(path)
+    webapp.encode_jpeg = lambda img, quality, max_wh: (
+        b"\xff\xd8" + img[:4, :4].tobytes() + b"\xff\xd9")
+    try:
+        with tempfile.TemporaryDirectory() as d0, tempfile.TemporaryDirectory(
+                ) as tmp, port_log("web API"):
+            # (a) the visits over HTTP against the engine driven directly
+            ref = engine(d0)
+            want = ref.process_visit_data_from_json(visits, save_images=False)
+            want_rec = engine_record(ref)
+            eng = engine(tmp)
+            with web_server(eng, comparison(), tmp) as web, k1_capture(
+                    ) as k1_calls:
+                wa.launches = 0
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                status, _, got = web("POST", "/api/process-visits",
+                                     dict(visits, save_images=False))
+                visit_ms = (time.perf_counter() - t) * 1e3 / n
+                k1_visits = wa.launches
+                if status != 200 or not got["success"]:
+                    fail(f"web API: process-visits answered {status} {got}")
+                diff = record_diff(without_clock(want),
+                                   without_clock(got["results"]), TOL_RECORD,
+                                   "results") or record_diff(
+                    want_rec, engine_record(eng), TOL_RECORD)
+                if diff:
+                    fail(f"web API: the engine over HTTP and driven directly "
+                         f"differ: {diff}")
+                wa.launches = 0
+                t = time.perf_counter()
+                status, _, cmp_ = web(
+                    "POST", "/api/process-face-comparisons-from-api",
+                    {"records": comparison_records(npairs)})
+                pair_ms = (time.perf_counter() - t) * 1e3 / npairs
+                k1_pairs = wa.launches
+                if status != 200 or cmp_["summary"]["processed"] != npairs:
+                    fail(f"web API: face comparisons answered {status}")
+                # every other route once
+                groups = web("GET", "/api/person-groups")
+                pid = groups[2]["groups"][0]["person_id"]
+                img = os.path.join(tmp, "face.npy")
+                np.save(img, loader_image("http://cam/photo.jpg", hw))
+                routes = {
+                    "GET /": web("GET", "/"),
+                    "GET /api/stats": web("GET", "/api/stats"),
+                    "GET /api/config": web("GET", "/api/config"),
+                    "GET /api/person-groups": groups,
+                    "GET /api/low-similarity-images": web(
+                        "GET", "/api/low-similarity-images"),
+                    "GET /api/job-progress": web("GET", "/api/job-progress"),
+                    "GET /api/person/{id}": web("GET", f"/api/person/{pid}"),
+                    "GET /api/image/{path}": web("GET", f"/api/image/{img}"),
+                    "GET /api/image-base64/{path}": web(
+                        "GET", f"/api/image-base64/{img}"),
+                    "POST /api/merge-duplicates": web(
+                        "POST", "/api/merge-duplicates", {}),
+                    "POST /api/process-visits-from-api": web(
+                        "POST", "/api/process-visits-from-api", {}),
+                    "POST /api/clear-cache": web("POST", "/api/clear-cache",
+                                                 {}),
+                    "POST /api/clear-database": web(
+                        "POST", "/api/clear-database", {}),
+                }
+                stats = web("GET", "/api/stats")[2]
+            expect = {"POST /api/process-visits-from-api": 400}
+            bad = {k: v[0] for k, v in routes.items()
+                   if v[0] != expect.get(k, 200)}
+            b64 = routes["GET /api/image-base64/{path}"][2]["image"]
+            if bad or stats["total_persons"] != 0 or not base64.b64decode(
+                    b64.split(",", 1)[1]).startswith(b"\xff\xd8"):
+                fail(f"web API: routes answered {bad}, persons after the "
+                     f"clear {stats['total_persons']}")
+            seen["routes"] = {k: v[0] for k, v in routes.items()}
+
+            # (b) micro-batched concurrent comparisons, on the
+            # identity-coded app: the seeded facade's faces are near ties
+            # whose pick moves with the batch's route (phase 12b holds the
+            # facade's own micro-batching to the direct path)
+            ident_app = IdentityApp()
+            eng = SmartFaceEngine(
+                config=deep_update(engine_config(tmp), {"serving": {
+                    "microbatch": True, "microbatch_max_wait_ms": 150.0}}),
+                app=ident_app, image_loader=identity_loader,
+                results_dir=os.path.join(tmp, "results"), device=DEV)
+            mb = ident_app._microbatcher
+            records = [{"id": f"r{i}",
+                        "image": f"http://cam/id_{i}_0.jpg",
+                        "refImage": "http://cam/id_%d_1.jpg"
+                        % (i if i % 2 == 0 else i + 100),
+                        "customerId": f"c{i}"} for i in range(8)]
+            ident_cmp = FaceComparison(
+                config=DEFAULT_CONFIG, app=ident_app, log_file=None,
+                image_loader=lambda src: identity_loader(src), device=DEV)
+            try:
+                with web_server(eng, ident_cmp, tmp) as web:
+                    seq = [web("POST",
+                               "/api/process-face-comparisons-from-api",
+                               {"records": [r]})[2]["confidences"][0]
+                           for r in records]
+                    mb.n_batches = mb.n_items = mb.max_batch_seen = 0
+                    par = [None] * len(records)
+
+                    def post(i):
+                        par[i] = web("POST",
+                                     "/api/process-face-comparisons-from-api",
+                                     {"records": [records[i]]})[2][
+                                         "confidences"][0]
+
+                    ts = [threading.Thread(target=post, args=(i,))
+                          for i in range(len(records))]
+                    for th in ts:
+                        th.start()
+                    for th in ts:
+                        th.join(timeout=120)
+                    width, n_batches = mb.max_batch_seen, mb.n_batches
+            finally:
+                ident_app.disable_microbatch()
+            worst = max(abs(a["confidence"] - b["confidence"])
+                        for a, b in zip(seq, par) if b is not None)
+            if (any(b is None for b in par) or width <= 1
+                    or any(a["our_result"] != b["our_result"]
+                           or a["comparison_id"] != b["comparison_id"]
+                           for a, b in zip(seq, par)) or worst > 1e-6):
+                fail(f"web API: concurrent comparisons (max batch {width}) "
+                     f"differ from the sequential ones, by up to {worst}")
+            seen["microbatch"] = (width, n_batches, worst)
+
+        # (c) the PQ tier through the web, against the CPU run
+        cfg = ENGINE_PQ
+        ident = [(i % cfg["idents"], i // cfg["idents"])
+                 for i in range(cfg["visits"])]
+        pq_visits = engine_visits(cfg["visits"],
+                                  lambda i: "http://cam/id_%d_%d.jpg"
+                                  % ident[i])
+
+        vdb = dict(tier="pq", pq_min_train_rows=cfg["min_train_rows"])
+        with tempfile.TemporaryDirectory() as tmp, tempfile.TemporaryDirectory(
+                ) as d0, port_log("web API, PQ tier"):
+            cpu_eng, cpu_res = run_engine(d0, IdentityApp(), identity_loader,
+                                          pq_visits, cfg["batches"], "cpu",
+                                          **vdb)
+            cpu_rec = engine_record(cpu_eng)
+            eng = SmartFaceEngine(
+                config=engine_config(tmp, **vdb), app=IdentityApp(),
+                image_loader=identity_loader,
+                results_dir=os.path.join(tmp, "results"), device=DEV)
+            with web_server(eng, None, tmp) as web, captured_calls(
+                    pq, "pq_adc_scores") as k2_calls:
+                pq_adc.launches = 0
+                step = -(-cfg["visits"] // cfg["batches"])
+                totals = {}
+                for c0 in range(0, cfg["visits"], step):
+                    status, _, got = web("POST", "/api/process-visits", {
+                        "visits": pq_visits["visits"][c0:c0 + step],
+                        "save_images": False})
+                    if status != 200:
+                        fail(f"web API, PQ tier: process-visits answered "
+                             f"{status} {got}")
+                    for k, v in got["results"].items():
+                        totals[k] = totals.get(k, 0) + v
+                k2 = pq_adc.launches
+            card_rec = engine_record(eng)
+            tier = eng.vector_db.tier
+    finally:
+        webapp.read_image, webapp.encode_jpeg = saved
+    if tier != "pq" or k2 <= 0 or not k2_calls:
+        fail(f"web API, PQ tier: tier {tier}, K2 launches {k2}, "
+             f"{len(k2_calls)} searches captured")
+    diff = record_diff(card_rec, cpu_rec, TOL_RECORD) or record_diff(
+        totals, cpu_res, 0, "results")
+    if diff:
+        fail(f"web API, PQ tier: the card over HTTP and the CPU decide "
+             f"differently: {diff}")
+    err2, rel = 0.0, 0.0
+    for lut, codes, precision in k2_calls:
+        e, r = compare_k2(torch, pq_adc, lut, codes, precision)
+        err2, rel = max(err2, e), max(rel, r)
+    err1, what = k1_on_path(torch, wa, k1_calls)
+    width, n_batches, worst = seen["microbatch"]
+    rep.say(f"web API: make_server on 127.0.0.1 over SmartFaceEngine on "
+            f"phase 12's facade (f32, seeded): POST /api/process-visits "
+            f"of {n} visits {visit_ms:.2f} ms a visit over HTTP (phase 12 "
+            f"direct {direct['ms_visit']:.2f}), K1 launches {k1_visits}; "
+            f"the SQLite rows and results equal to the engine driven "
+            f"directly; {npairs} comparisons in one request {pair_ms:.2f} "
+            f"ms a pair (phase 12 direct {direct['ms_pair']:.2f}), K1 "
+            f"launches {k1_pairs}; K1 vs plain on the requests' inputs, "
+            f"{what}: max abs err {err1:.6g} u8 (tolerance {TOL_U8})")
+    rep.say("web API: every other route once: " + ", ".join(
+        f"{k} {v}" for k, v in seen["routes"].items())
+        + "; /api/image-base64 with its reader and encoder replaced (no "
+        "cv2 on this machine); no ERROR logged")
+    rep.say(f"web API: serving.microbatch on (the identity-coded app), "
+            f"8 concurrent comparison requests: coalesced, max batch "
+            f"{width} over {n_batches} batches; each answer equal to the "
+            f"sequential one (our_result, ids; confidence within "
+            f"{worst:.3g}, tolerance 1e-6)")
+    rep.say(f"web API, PQ tier: IdentityApp, {cfg['visits']} visits in "
+            f"{cfg['batches']} POSTs: new persons {totals['new_persons']}, "
+            f"assigned {totals['recognized']}; K2 launches {k2}; the "
+            f"decisions equal to the CPU run's; K2 vs plain on every "
+            f"search's inputs ({len(k2_calls)} searches): max abs err "
+            f"{err2:.6g} = {rel:.3g} of max |score| (tolerance {TOL_K2})")
+    return dict(k1=k1_visits + k1_pairs, k2=k2, err1=err1, err2=err2,
+                ms_visit=visit_ms, ms_pair=pair_ms, width=width)
+
+
 def main():
     import torch
 
@@ -3471,7 +4067,7 @@ def main():
     phase_microbatch(torch, rep, app)
     eng = phase_engine(torch, rep, app)
     eng_pq = phase_engine_pq(torch, rep)
-    phase_verification(torch, rep, app)
+    ver = phase_verification(torch, rep, app)
 
     # 13. the bf16 main path at bench.py's settings; 14. the realtime app
     bf = phase_bf16_bench(torch, rep)
@@ -3481,24 +4077,34 @@ def main():
     # 15. the ONNX executor path
     ox = phase_onnx_exec(torch, rep, bf["bench"])
 
-    # 16. kernels
+    # 16. the camera apps; 17. the web API
+    t16 = time.perf_counter()
+    cam = phase_camera_apps(torch, rep, ox["paths"])
+    t17 = time.perf_counter()
+    web = phase_web(torch, rep, app, dict(ms_visit=eng["ms_visit"],
+                                          ms_pair=ver["ms_pair"]))
+    rep.say(f"phases 16 and 17 took {t17 - t16:.1f} s and "
+            f"{time.perf_counter() - t17:.1f} s")
+
+    # 18. kernels
     t2 = gal["times"]
     kernels = [{
         "name": wa.NAME, "route": "cuda",
         "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/warp_align.cu",
         "replaces": "scrfd_arcface_facerecognition_tpu/ops/pallas_warp.py:430",
         "launches": launches + bf["launches"] + rt["launches"]
-        + ox["launches"],
+        + ox["launches"] + cam["launches"] + web["k1"],
         "max_abs_err": max(err3, err4, sp["err1"], fa["err"], eng["err"],
-                           bf["err"], rt["err"], ox["err"]),
+                           bf["err"], rt["err"], ox["err"], cam["err"],
+                           web["err1"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     }, {
         "name": pq_adc.NAME, "route": "cuda",
         "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/pq_adc.cu",
         "replaces": "scrfd_arcface_facerecognition_tpu/gallery/pq.py:302",
-        "launches": gal["launches"],
-        "max_abs_err": max(err6, gal["err"], eng_pq["err"]),
+        "launches": gal["launches"] + web["k2"],
+        "max_abs_err": max(err6, gal["err"], eng_pq["err"], web["err2"]),
         "ms": t2["ms"], "plain_ms": t2["plain_ms"],
         "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
         "library_ms": t2["library_ms"],

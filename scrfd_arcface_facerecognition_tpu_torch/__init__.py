@@ -21,13 +21,33 @@ JAX repository's experiment scripts, ported with their scripts under
 ``tools/``: the band-mix warp (``csrc/warp_band.cu``) and the narrow 3x3
 conv (``csrc/conv3x3.cu``). Released-format ``.onnx`` weights load through
 ``models/config_from_graph.variables_from_onnx``.
+
+The exports below are imported when first used, not with the package.
 """
 
-from .device import resolve_device
-from .pipeline import Detector, Embedder, FacePipeline
-from .gallery import AutoGallery, GalleryStore
-from .apps import FaceAnalysis, FaceComparison, SmartFaceEngine
+import importlib
 
-__all__ = ["resolve_device", "FacePipeline", "Detector", "Embedder",
-           "AutoGallery", "GalleryStore", "FaceAnalysis", "SmartFaceEngine",
-           "FaceComparison"]
+# each export's submodule; imported on first access (PEP 562), so that a
+# submodule that needs no torch (the runtime's decode workers import
+# ``runtime.decode_pool``) does not pull it in through this package
+_EXPORTS = {
+    "resolve_device": ".device", "FacePipeline": ".pipeline",
+    "Detector": ".pipeline", "Embedder": ".pipeline",
+    "AutoGallery": ".gallery", "GalleryStore": ".gallery",
+    "FaceAnalysis": ".apps", "SmartFaceEngine": ".apps",
+    "FaceComparison": ".apps",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(_EXPORTS[name], __name__), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

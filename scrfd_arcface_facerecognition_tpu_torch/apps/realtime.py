@@ -150,19 +150,11 @@ def annotate_batch(frames: np.ndarray, out, names: List[str], colors) -> None:
                 draw_bbox(frames[bi], bbox, (255, 0, 0))
 
 
-def run(params: argparse.Namespace, device=None) -> dict:
-    """The app: gallery, then the stream, annotated and written. Returns
-    {"frames": frames written, "targets": gallery size}."""
-    logging.basicConfig(
-        level=getattr(logging, params.log_level.upper(), None),
-        format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
-    if params.disagg:
-        raise NotImplementedError(
-            f"--disagg {params.disagg}: multi-device serving is not ported "
-            f"yet (ROADMAP.md queue 1, item 8); run with --disagg 0")
-    # weight files that exist run as graphs (the graph executor); else the
-    # seeded variants the file names name
-    pipeline = FacePipeline(
+def app_pipeline(params: argparse.Namespace, device=None) -> FacePipeline:
+    """The camera apps' pipeline at bfloat16 compute: weight files that
+    exist at ``--det-weight`` / ``--rec-weight`` run as graphs (the graph
+    executor); else the seeded variants the file names name."""
+    return FacePipeline(
         det_variant=variant_from_path(params.det_weight, "det_10g"),
         rec_variant=variant_from_path(params.rec_weight, "w600k_r50"),
         det_onnx=(params.det_weight if os.path.exists(params.det_weight)
@@ -173,12 +165,31 @@ def run(params: argparse.Namespace, device=None) -> dict:
         similarity_thresh=params.similarity_thresh,
         dtype=torch.bfloat16, device=device)
 
-    targets = build_targets(pipeline, params.faces_dir)
+
+def load_gallery(pipeline: FacePipeline, faces_dir: str):
+    """The pipeline's gallery from ``faces_dir`` (``build_targets``) and a
+    random drawing colour a name; -> (targets, colors)."""
+    targets = build_targets(pipeline, faces_dir)
     if targets:
         pipeline.set_gallery(np.stack([t[0] for t in targets]),
                              [t[1] for t in targets])
     colors = {name: (random.randint(0, 256), random.randint(0, 256),
                      random.randint(0, 256)) for _, name in targets}
+    return targets, colors
+
+
+def run(params: argparse.Namespace, device=None) -> dict:
+    """The app: gallery, then the stream, annotated and written. Returns
+    {"frames": frames written, "targets": gallery size}."""
+    logging.basicConfig(
+        level=getattr(logging, params.log_level.upper(), None),
+        format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
+    if params.disagg:
+        raise NotImplementedError(
+            f"--disagg {params.disagg}: multi-device serving is not ported "
+            f"yet (ROADMAP.md queue 1, item 8); run with --disagg 0")
+    pipeline = app_pipeline(params, device)
+    targets, colors = load_gallery(pipeline, params.faces_dir)
 
     # the native ffmpeg decoder for files and streams, cv2 for webcams
     cap = open_capture(str(params.source))

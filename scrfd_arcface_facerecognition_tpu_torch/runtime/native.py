@@ -301,6 +301,12 @@ _VIDEO_LIB_PATH = os.path.join(_NATIVE_DIR, "libsafr_video.so")
 _video_lib = None
 _video_build_attempted = False
 
+# the decoder's colour conversion writes whole 16-pixel groups: a frame
+# whose width is not a multiple of 16 gets up to 15 pixels (45 bytes)
+# written past its end (24 bytes measured at widths 200-248); the reader
+# decodes such frames into this much room beyond the frame
+DECODE_SLACK = 64
+
 # cv2's capture property ids (videoio's CAP_PROP_*), answered without cv2
 CAP_PROP_FRAME_WIDTH = 3
 CAP_PROP_FRAME_HEIGHT = 4
@@ -365,19 +371,27 @@ class NativeVideoReader:
                       ctypes.byref(fps))
         self.width, self.height, self.fps = w.value, h.value, fps.value
 
+    def _decode(self, buf: np.ndarray) -> bool:
+        rc = self._lib.vdec_read(
+            self._h, buf.ctypes.data_as(ctypes.c_void_p),
+            self.height * self.width * 3)
+        return rc == 1
+
     def read(self) -> Tuple[bool, Optional[np.ndarray]]:
         if self._h is None:
             return False, None
-        buf = np.empty((self.height, self.width, 3), np.uint8)
-        rc = self._lib.vdec_read(
-            self._h, buf.ctypes.data_as(ctypes.c_void_p), buf.nbytes)
-        if rc == 1:
-            return True, buf
+        need = self.height * self.width * 3
+        buf = np.empty(need + DECODE_SLACK, np.uint8)
+        if self._decode(buf):
+            return True, buf[:need].reshape(self.height, self.width, 3)
         return False, None
 
     def read_into(self, buf: np.ndarray) -> bool:
-        """Decode the next frame straight into ``buf`` (uint8, C-contiguous,
-        at least height * width * 3 bytes), e.g. a ring slot."""
+        """Decode the next frame into ``buf`` (uint8, C-contiguous, at
+        least height * width * 3 bytes), e.g. a ring slot: straight in
+        where the decoder writes no further than the frame (a width that
+        is a multiple of 16), else through a buffer with room and one
+        copy."""
         if self._h is None:
             return False
         if not buf.flags["C_CONTIGUOUS"]:
@@ -385,9 +399,13 @@ class NativeVideoReader:
         need = self.height * self.width * 3
         if buf.nbytes < need:
             raise ValueError(f"buffer too small: {buf.nbytes} < {need}")
-        rc = self._lib.vdec_read(
-            self._h, buf.ctypes.data_as(ctypes.c_void_p), need)
-        return rc == 1
+        if self.width % 16 == 0:
+            return self._decode(buf)
+        room = np.empty(need + DECODE_SLACK, np.uint8)
+        if not self._decode(room):
+            return False
+        buf.reshape(-1)[:need] = room[:need]
+        return True
 
     def isOpened(self) -> bool:  # cv2's name
         return self._h is not None

@@ -27,7 +27,9 @@ def test_import_leaves_no_jax_in_sys_modules():
         "       'apps.quality', 'apps.metadata_db', 'apps.json_storage',\n"
         "       'utils.config', 'runtime.microbatch', 'runtime.video',\n"
         "       'utils.drawing', 'apps.realtime', 'models.onnx_exec',\n"
-        "       'models.graph_models', 'models.preflight')\n"
+        "       'models.graph_models', 'models.preflight',\n"
+        "       'runtime.decode_pool', 'apps.multistream', 'apps.dualstream',\n"
+        "       'apps.webui', 'apps.webapp')\n"
         "bad += [m for m in new if p.__name__ + '.' + m not in sys.modules]\n"
         "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
@@ -67,7 +69,9 @@ def test_no_module_of_the_port_imports_jax_flax_or_the_jax_package():
                 "runtime/microbatch.py", "runtime/video.py",
                 "runtime/__init__.py", "utils/drawing.py",
                 "apps/realtime.py", "models/onnx_exec.py",
-                "models/graph_models.py", "models/preflight.py"):
+                "models/graph_models.py", "models/preflight.py",
+                "runtime/decode_pool.py", "apps/multistream.py",
+                "apps/dualstream.py", "apps/webui.py", "apps/webapp.py"):
         assert mod in names, mod
     for path in files:
         bad = set(_imported_roots(path)) & set(_FORBIDDEN)
@@ -102,7 +106,8 @@ def test_no_module_of_the_port_imports_cv2_at_module_level():
     # the loader, the video opener, the drawing and the realtime app's
     # reader / writer / display keep their cv2 inside functions
     for mod in (("apps", "clustering.py"), ("runtime", "video.py"),
-                ("utils", "drawing.py"), ("apps", "realtime.py")):
+                ("utils", "drawing.py"), ("apps", "realtime.py"),
+                ("apps", "dualstream.py"), ("apps", "webapp.py")):
         src = os.path.join(_PKG, *mod)
         assert "cv2" in set(_imported_roots(src)), mod
         assert "cv2" not in _module_level_roots(src), mod
@@ -118,13 +123,60 @@ def test_no_module_of_the_port_imports_cv2_at_module_level():
     assert out.stdout.strip().splitlines()[-1] == "False", out.stdout
 
 
+def test_the_decode_pool_and_the_runtime_import_without_torch():
+    """A fresh interpreter importing the decode pool (what a decode
+    worker imports) or the runtime package loads no torch; the package's
+    exports still load on first use."""
+    code = ("import sys\n"
+            "import scrfd_arcface_facerecognition_tpu_torch.runtime.decode_pool\n"
+            "import scrfd_arcface_facerecognition_tpu_torch.runtime as r\n"
+            "print('torch' in sys.modules, hasattr(r, 'DecodePool'))\n"
+            "from scrfd_arcface_facerecognition_tpu_torch import FacePipeline\n"
+            "import scrfd_arcface_facerecognition_tpu_torch as p\n"
+            "print('torch' in sys.modules, FacePipeline.__name__,\n"
+            "      set(p.__all__) <= set(dir(p)))\n")
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:2] == ["False True",
+                                          "True FacePipeline True"], out.stdout
+
+
+def test_package_exports_are_the_same_names_loaded_lazily():
+    import scrfd_arcface_facerecognition_tpu_torch as p
+    from scrfd_arcface_facerecognition_tpu_torch import apps, gallery, pipeline
+
+    assert sorted(p.__all__) == sorted([
+        "resolve_device", "FacePipeline", "Detector", "Embedder",
+        "AutoGallery", "GalleryStore", "FaceAnalysis", "SmartFaceEngine",
+        "FaceComparison"])
+    assert p.FacePipeline is pipeline.FacePipeline
+    assert p.GalleryStore is gallery.GalleryStore
+    assert p.SmartFaceEngine is apps.SmartFaceEngine
+    with pytest.raises(AttributeError, match="no attribute 'nope'"):
+        p.nope
+    from scrfd_arcface_facerecognition_tpu_torch import runtime
+
+    assert hasattr(runtime, "DecodePool")
+    for name in ("WebApp", "make_server", "run_web_server", "multistream",
+                 "dualstream", "webapp"):
+        assert hasattr(apps, name), name
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     from scrfd_arcface_facerecognition_tpu_torch import (
         Detector, Embedder, FaceAnalysis, FaceComparison, FacePipeline,
         SmartFaceEngine, ops, resolve_device)
-    from scrfd_arcface_facerecognition_tpu_torch.apps import realtime
+    from scrfd_arcface_facerecognition_tpu_torch.apps import (
+        dualstream, multistream, realtime, run_web_server)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    weights = ["--det-weight", "det_500m.onnx", "--rec-weight",
+               "w600k_mbf.onnx"]
+    multi_args = multistream.parse_args(["--sources", "a.mp4"] + weights)
+    dual_args = dualstream.parse_args(["--source1", "a.mp4", "--source2",
+                                       "b.mp4"] + weights)
     # the app builds its pipeline (on the card) before it opens anything
     app_args = realtime.parse_args(["--det-weight", "det_500m.onnx",
                                     "--rec-weight", "w600k_mbf.onnx",
@@ -145,7 +197,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: resolve_device("cuda"),
                  lambda: ops.anchor_centers(4, 4, 8),
                  lambda: ops.scrfd_anchor_table((64, 64)),
-                 lambda: realtime.run(app_args)):
+                 lambda: realtime.run(app_args),
+                 lambda: multistream.run(multi_args),
+                 lambda: dualstream.run(dual_args),
+                 lambda: run_web_server(port=0)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert resolve_device("cpu").type == "cpu"

@@ -841,3 +841,120 @@ def test_f32_face_pairing_names_ties_and_fails_the_rest():
     with pytest.raises(RuntimeError, match="shares of the f32 budget"):
         chip_smoke.hold_f32_faces(torch, out(a, [0.9, 0.8]),
                                   out(a, [0.9, 0.81]), **kw)
+
+
+def _camera_apps_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 16 at small sizes on the CPU: phase 15's small exported
+    stand-ins as the weight files, small cameras."""
+    rep, said = _onnx_phase_on_the_cpu(monkeypatch, tmp_path)
+    monkeypatch.setattr(chip_smoke, "CAMERAS", dict(
+        hd=(48, 64), sd=(32, 48), frames=6, dual_pairs=4, workers=2,
+        slot_bytes=48 * 64 * 3))
+    return rep, said, chip_smoke.standin_onnx(torch, None)
+
+
+def test_camera_apps_phase_rehearsed_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 16: the multi-camera app through decode threads and through
+    the decode pool (the cameras opened in the workers), every live
+    camera's frames written in order at its own size, each round equal to
+    a direct call, the same rounds from both readers; the dual app with
+    its second camera resized; K1 counted and held on the runs' inputs;
+    the apps' replaceable names and the pool class restored after it."""
+    from scrfd_arcface_facerecognition_tpu_torch.apps import realtime
+    from scrfd_arcface_facerecognition_tpu_torch.runtime import decode_pool
+
+    before = (realtime.FacePipeline, realtime.open_capture,
+              realtime.open_writer, realtime.annotate_batch,
+              realtime.read_image, decode_pool.DecodePool)
+    rep, said, paths = _camera_apps_on_the_cpu(monkeypatch, tmp_path)
+    cam = chip_smoke.phase_camera_apps(torch, rep, paths)
+    # 6 rounds a reader (4 streams for 3 frames, then 3 for 3), 4 pairs,
+    # and each run's gallery photo
+    assert cam["launches"] == 6 + 6 + 4 + 3 and cam["err"] == 0.0
+    assert cam["start_s"] > 0 and cam["first_round_s"] > 0
+    assert (realtime.FacePipeline, realtime.open_capture,
+            realtime.open_writer, realtime.annotate_batch,
+            realtime.read_image, decode_pool.DecodePool) == before
+    text = "\n".join(said)
+    for start in ("camera apps: multistream.run (threads)",
+                  "camera apps: multistream.run (pool)",
+                  "4 synthetic cameras and one that does not open",
+                  "in 6 rounds of [3, 4] streams",
+                  "the same rounds as the decode threads",
+                  "camera apps: dualstream.run", "4 pairs"):
+        assert start in text, start
+
+
+def test_camera_apps_phase_fails_on_a_frame_out_of_order(monkeypatch,
+                                                         tmp_path):
+    """A camera whose frames reach the writer out of order fails phase
+    16."""
+    rep, _, paths = _camera_apps_on_the_cpu(monkeypatch, tmp_path)
+    real = chip_smoke.SyntheticCapture.read
+
+    def swapped(self):
+        ok, frame = real(self)
+        if ok and len(self.sums) == 2 and self.h == 48:
+            frame = self.frames[2].copy()      # frame 2 in frame 1's place
+        return ok, frame
+
+    monkeypatch.setattr(chip_smoke.SyntheticCapture, "read", swapped)
+    with pytest.raises(RuntimeError, match=r"camera apps \(threads\): "
+                                           r"stream 0 written"):
+        chip_smoke.phase_camera_apps(torch, rep, paths)
+
+
+def test_synthetic_cameras_cover_the_phases_cases():
+    cams = chip_smoke.camera_sources()
+    hd, sd, n = (chip_smoke.CAMERAS[k] for k in ("hd", "sd", "frames"))
+    assert [(k, (h, w)) for _, k, h, w in cams] == [
+        (n, hd), (n // 2, hd), (0, (0, 0)), (n, sd), (n, hd)]
+    down = chip_smoke.synthetic_camera("cam:down")
+    assert not down.isOpened() and down.read() == (False, None)
+    cap = chip_smoke.synthetic_camera(cams[3][0])
+    assert cap.get(3) == sd[1] and cap.get(4) == sd[0] and cap.fps == 25.0
+
+
+def test_web_phase_rehearsed_on_the_cpu(monkeypatch):
+    """Phase 17: the engine over HTTP equal to the engine driven
+    directly, every other route answered, concurrent comparisons
+    coalesced and equal to the sequential ones, the PQ tier through the
+    web with K2 counted and held, its decisions equal to the CPU run's;
+    the web app's reader and encoder restored after it."""
+    from scrfd_arcface_facerecognition_tpu_torch.apps import webapp
+
+    before = (webapp.read_image, webapp.encode_jpeg)
+    rep, said = _phase12_on_the_cpu(monkeypatch)
+    app, _ = chip_smoke.phase_facade(torch, rep)
+    web = chip_smoke.phase_web(torch, rep, app, dict(ms_visit=1.0,
+                                                     ms_pair=2.0))
+    assert web["k1"] > 0 and web["k2"] == 2 and web["width"] > 1
+    assert web["err1"] == 0.0 and web["err2"] == 0.0
+    assert (webapp.read_image, webapp.encode_jpeg) == before
+    assert app._microbatcher is None
+    text = "\n".join(said)
+    for start in ("web API: make_server on 127.0.0.1",
+                  "(phase 12 direct 1.00)", "(phase 12 direct 2.00)",
+                  "GET /api/image-base64/{path} 200",
+                  "POST /api/process-visits-from-api 400",
+                  "POST /api/clear-database 200",
+                  "web API: serving.microbatch on",
+                  "web API, PQ tier: IdentityApp",
+                  "the decisions equal to the CPU run's"):
+        assert start in text, start
+
+
+def test_web_phase_fails_on_an_error_a_handler_logs(monkeypatch):
+    """A route whose handler raises answers 500 and logs at ERROR; phase
+    17 fails on either."""
+    from scrfd_arcface_facerecognition_tpu_torch.apps import clustering
+
+    rep, _ = _phase12_on_the_cpu(monkeypatch)
+    app, _ = chip_smoke.phase_facade(torch, rep)
+    monkeypatch.setattr(clustering.SmartFaceEngine, "get_low_similarity_"
+                        "images", lambda self: 1 / 0)
+    with pytest.raises(RuntimeError, match="web API: (routes answered "
+                                           "{'GET /api/low-similarity|the "
+                                           "port logged)"):
+        chip_smoke.phase_web(torch, rep, app, dict(ms_visit=1.0,
+                                                   ms_pair=2.0))

@@ -8,6 +8,7 @@ frames through both packages' readers give equal batches (exact); the
 native decoder's frames are within 2 of cv2's on average (both decode
 with ffmpeg; colour conversion may differ by a step).
 """
+import os
 import sys
 import threading
 
@@ -202,6 +203,53 @@ def test_native_video_decoder_matches_cv2_on_a_clip(tmp_path):
     nat.release()
     assert nat.read() == (False, None) and not nat.isOpened()
     ref.release()
+
+
+def test_native_reader_leaves_room_for_widths_off_16(tmp_path):
+    """The decoder writes whole 16-pixel groups: at a width that is not a
+    multiple of 16 it writes past the frame (24 bytes at 200 wide), which
+    corrupted the heap. The reader gives it room; each frame read, by
+    ``read`` or into an exact-size buffer by ``read_into``, equals the same
+    frame decoded into a buffer with room, and cv2's within the codec
+    tolerance of the test above. In a child process: a corrupted heap
+    ends it."""
+    import subprocess
+
+    _native_video_or_skip()
+    paths = {w: write_clip(tmp_path / f"w{w}.mp4",
+                           seeded_frames(w, 4, 48, w)) for w in (200, 208)}
+    code = """
+import ctypes, sys
+import cv2, numpy as np
+from scrfd_arcface_facerecognition_tpu_torch.runtime.native import (
+    NativeVideoReader)
+for path in sys.argv[1:]:
+    a, b, c = (NativeVideoReader(path) for _ in range(3))
+    ref = cv2.VideoCapture(path)
+    n = a.height * a.width * 3
+    for i in range(4):
+        room = np.full(n + 4096, 7, np.uint8)
+        assert c._lib.vdec_read(c._h, room.ctypes.data_as(ctypes.c_void_p),
+                                n) == 1
+        ok, f = a.read()
+        exact = np.empty((a.height, a.width, 3), np.uint8)
+        assert ok and b.read_into(exact)
+        want = room[:n].reshape(a.height, a.width, 3)
+        assert np.array_equal(f, want) and np.array_equal(exact, want)
+        diff = np.abs(f.astype(int) - ref.read()[1].astype(int))
+        assert diff.mean() < 2.0, diff.mean()
+    assert a.read() == (False, None) and not b.read_into(exact)
+    for r in (a, b, c, ref):
+        r.release()
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    out = subprocess.run([sys.executable, "-c", code, paths[200],
+                          paths[208]], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", (
+        out.returncode, out.stderr[-2000:])
 
 
 def test_native_reader_get_answers_without_cv2(tmp_path, monkeypatch):
