@@ -204,8 +204,31 @@ non-zero exit if it fails:
    in POSTs), K2 counted and held to its plain version on every search,
    the decisions equal to a CPU run's; an ERROR logged by the port fails
    the phase;
-18. one JSON line of every kernel's numbers (K1's launches are those of
-   phases 4, 13, 14, 15, 16 and 17; K2's those of phases 7 and 17).
+18. train, checkpoint, export, serve (``TRAIN``): (a) the ArcFace
+   trainer on w600k_mbf at full width, batch 16, 1,000 classes, on the
+   card and on the CPU from one seeded state, full softmax and Partial FC
+   0.1 on the same scores: the first step's loss at f32 with TF32 off
+   (1e-5 relative), then one and three steps in float64 (training-mode
+   BN makes some gradients small sums of large terms, which f32 rounding
+   moves by percents): the losses within 1e-11 relative and every tensor
+   (weights, BN statistics, momentum, class matrix) within 1e-12 + 1e-10
+   of its largest magnitude; (b) w600k_r50 at batch 128 over 600,000
+   classes (WebFace600K's) with Partial FC 0.1, 3 warm-up and 10 timed
+   steps on fresh random batches, without and with remat: ms a step
+   (CUDA events), images a second, peak device memory, every loss finite
+   and above ln(sampled classes) / 2 (random labels cannot be learned);
+   one step under ``torch.profiler`` (the device's busy share and its
+   longest events); (c) w600k_mbf memorizes one batch of 64 over 64 classes
+   in 30 steps (the last loss below the first); (d) ``tools.train_arcface
+   --synthetic 5`` and ``tools.export_onnx --verify`` in child processes,
+   ``preflight_graph`` on the file, ``variables_from_onnx`` bit-equal to
+   ``load_inference_variables`` of the checkpoint, ``Embedder(onnx_path=)``
+   within cosine 0.9999 of the trained module at f32, then
+   ``FacePipeline`` with phase 11's det_10g stand-in and the exported
+   embedder on 8 seeded 1080p frames, K1 counted and held to its plain
+   version on the calls' inputs;
+19. one JSON line of every kernel's numbers (K1's launches are those of
+   phases 4, 13, 14, 15, 16, 17 and 18; K2's those of phases 7 and 17).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside it, the script exits non-zero and prints no
@@ -214,6 +237,7 @@ result.
 import contextlib
 import json
 import logging
+import math
 import os
 import subprocess
 import sys
@@ -308,6 +332,20 @@ CAMERAS = dict(hd=(1080, 1920), sd=(720, 1280), frames=24, dual_pairs=24,
                workers=2, slot_bytes=1920 * 1080 * 3)
 TOL_CANVAS = 1e-4       # dynamic canvas vs exact-shape letterbox
 TOL_RECORD = 1e-5       # engine floats (similarities), card vs CPU
+# phase 18: (a) card vs CPU, (b) the released training shape (WebFace600K's
+# classes), (c) one batch memorized, (d) the CLIs to the pipeline
+TRAIN = dict(
+    cmp=dict(rec="w600k_mbf", batch=16, classes=1000, steps=3, rate=0.1),
+    full=dict(rec="w600k_r50", batch=128, classes=600_000, rate=0.1, warm=3,
+              timed=10),
+    learn=dict(rec="w600k_mbf", batch=64, classes=64, steps=30, lr=0.1),
+    loop=dict(rec="w600k_mbf", steps=5, batch=64, crops=64, frames=8,
+              hw=(1080, 1920), calls=2))
+# card vs CPU: the f32 first loss and the float64 losses relative; in
+# float64 every tensor within atol + rtol * max |CPU| after one step and
+# after three; the exported embedder's cosine
+TOL_TRAIN = dict(loss=1e-5, loss64=1e-11, double=(1e-12, 1e-10),
+                 cos=0.9999)
 
 
 def fail(msg):
@@ -4002,6 +4040,374 @@ def phase_web(torch, rep, app, direct):
                 ms_visit=visit_ms, ms_pair=pair_ms, width=width)
 
 
+# ---------------------------------------------------------------------
+# phase 18: train, checkpoint, export, serve
+
+
+def train_run(torch, trainer, parts, images, labels, scores, steps):
+    """``steps`` updates from ``parts``: each state's parts (copied to the
+    CPU) and the losses."""
+    from scrfd_arcface_facerecognition_tpu_torch.train import state_parts
+
+    state = trainer.state_from(parts)
+    states, losses = [], []
+    for step in range(steps):
+        state, loss = trainer.train_step(
+            state, images, labels,
+            None if scores is None else scores[step])
+        states.append(state_parts(state))
+        losses.append(float(loss))
+    return states, losses
+
+
+def worst_gaps(got, want, what):
+    """For the weights (with the class matrix), the BN statistics and the
+    momentum: the largest gap between two states' tensors as a share of
+    ``TOL_TRAIN["double"]`` (``atol + rtol * max |want|``), and its
+    tensor; fails past 1."""
+    from scrfd_arcface_facerecognition_tpu_torch.train import state_gaps
+
+    atol, rtol = TOL_TRAIN["double"]
+    out = {}
+    for name, share in state_gaps(got, want, atol, rtol).items():
+        kind = ("BN statistics" if ".running_" in name else
+                "momentum" if name.startswith("trace.") else "weights")
+        if share > 1.0:
+            fail(f"{what} {name}: {share:.3g} x {atol} + {rtol} x max")
+        if share >= out.get(kind, (-1.0, ""))[0]:
+            out[kind] = share, name
+    return out
+
+
+def said_gaps(gaps):
+    return ", ".join(f"{kind} {share:.3g} ({name})"
+                     for kind, (share, name) in gaps.items())
+
+
+def phase_train_card_vs_cpu(torch, rep):
+    """18a: ``TRAIN["cmp"]`` on the card and on the CPU from one seeded
+    state, full softmax and Partial FC on the same scores: the first
+    step's loss at float32 (TF32 off), then one and three steps in
+    float64, every tensor held to ``TOL_TRAIN["double"]``."""
+    from scrfd_arcface_facerecognition_tpu_torch.models import build_arcface
+    from scrfd_arcface_facerecognition_tpu_torch.train import (
+        ArcFaceTrainer, state_parts)
+
+    c = TRAIN["cmp"]
+    rng = np.random.default_rng(18)
+    images = torch.from_numpy(rng.normal(size=(c["batch"], 3, 112, 112)))
+    labels = torch.from_numpy(rng.integers(0, c["classes"], c["batch"]))
+    draws = [torch.from_numpy(rng.uniform(size=c["classes"]))
+             for _ in range(c["steps"])]
+    out = {}
+    for rate in (1.0, c["rate"]):
+        what = "full softmax" if rate == 1.0 else f"Partial FC {rate}"
+        scores = None if rate == 1.0 else draws
+        runs = {}
+        for dtype, steps in ((torch.float32, 1), (torch.float64, c["steps"])):
+            kw = dict(num_classes=c["classes"], sample_rate=rate, dtype=dtype)
+            cpu = ArcFaceTrainer(model=build_arcface(c["rec"]), device="cpu",
+                                 **kw)
+            card = ArcFaceTrainer(model=build_arcface(c["rec"]), device=DEV,
+                                  **kw)
+            parts = state_parts(cpu.init_state(0))
+            t0 = time.perf_counter()
+            want = train_run(torch, cpu, parts, images, labels, scores, steps)
+            t_cpu = time.perf_counter() - t0
+            got = train_run(torch, card, parts, images.to(DEV),
+                            labels.to(DEV), scores, steps)
+            runs[dtype] = got, want, t_cpu
+        (_, got32), (_, want32), _ = runs[torch.float32]
+        rel32 = abs(got32[0] - want32[0]) / abs(want32[0])
+        if rel32 > TOL_TRAIN["loss"]:
+            fail(f"train card vs CPU, {what}, float32: step-1 loss "
+                 f"{got32[0]!r} against {want32[0]!r}, {rel32:.3g} relative")
+        (got, got_loss), (want, want_loss), t_cpu = runs[torch.float64]
+        rel64 = max(abs(g - w) / abs(w) for g, w in zip(got_loss, want_loss))
+        if rel64 > TOL_TRAIN["loss64"]:
+            fail(f"train card vs CPU, {what}, float64: losses {got_loss} "
+                 f"against {want_loss}")
+        gaps = [worst_gaps(got[i], want[i], f"train card vs CPU, {what}, "
+                           f"float64, step {i + 1}")
+                for i in (0, c["steps"] - 1)]
+        atol, rtol = TOL_TRAIN["double"]
+        rep.say(f"train card vs CPU ({c['rec']} full width, batch "
+                f"{c['batch']}, {c['classes']} classes, {what}): float32 "
+                f"(TF32 off) step-1 loss card {got32[0]:.7f} CPU "
+                f"{want32[0]:.7f} ({rel32:.3g} relative, tolerance "
+                f"{TOL_TRAIN['loss']}); float64 losses within {rel64:.3g} "
+                f"relative over {c['steps']} steps (tolerance "
+                f"{TOL_TRAIN['loss64']}); the worst tensor's share of "
+                f"{atol} + {rtol} x max after 1 step: {said_gaps(gaps[0])}"
+                f"; after {c['steps']}: {said_gaps(gaps[1])}; the CPU's "
+                f"{c['steps']} float64 steps {t_cpu:.1f} s")
+        out[what] = dict(loss32=(got32[0], want32[0]), rel64=rel64,
+                         gaps=gaps)
+    return out
+
+
+def phase_train_full(torch, rep):
+    """18b: ``TRAIN["full"]`` (iResNet-50 at the released training shape,
+    Partial FC) on the card, without and with remat: ms a step, images a
+    second, peak device memory."""
+    from scrfd_arcface_facerecognition_tpu_torch.models import build_arcface
+    from scrfd_arcface_facerecognition_tpu_torch.train import ArcFaceTrainer
+
+    c = TRAIN["full"]
+    t0 = time.perf_counter()
+    trainer = ArcFaceTrainer(model=build_arcface(c["rec"]),
+                             num_classes=c["classes"], sample_rate=c["rate"],
+                             device=DEV)
+    state = trainer.init_state(0)
+    gen = torch.Generator(device="cpu").manual_seed(181)
+    n = c["warm"] + c["timed"]
+    t_init = time.perf_counter() - t0
+    # random labels cannot be learned: each step's loss stays near its
+    # first, about ln(sampled classes) + s * sin(m)
+    floor = math.log(trainer.num_sample) / 2
+    out = {}
+    for remat in (False, True):
+        # fresh batches for each pass: a label seen once is learned
+        batches = [
+            (torch.randn((c["batch"], 3, 112, 112), generator=gen).to(DEV),
+             torch.randint(0, c["classes"], (c["batch"],),
+                           generator=gen).to(DEV)) for _ in range(n)]
+        trainer.remat = remat
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        for images, labels in batches[:c["warm"]]:
+            state, loss = trainer.train_step(state, images, labels)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for images, labels in batches[c["warm"]:]:
+            state, loss = trainer.train_step(state, images, labels)
+            losses.append(loss)
+        e.record()
+        e.synchronize()
+        ms = s.elapsed_time(e) / c["timed"]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [float(v) for v in losses]
+        if not all(np.isfinite(losses)):
+            fail(f"train {c['rec']}: a loss is not finite: {losses}")
+        if min(losses) < floor:
+            fail(f"train {c['rec']}: a loss on fresh random labels below "
+                 f"ln({trainer.num_sample}) / 2 = {floor:.3f}: {losses}")
+        out[remat] = dict(ms=ms, ips=c["batch"] * 1e3 / ms, peak=peak,
+                          losses=losses)
+        rep.say(f"train {c['rec']} full width, 112 x 112, batch "
+                f"{c['batch']}, {c['classes']} classes, Partial FC "
+                f"{c['rate']} ({trainer.num_sample} sampled), f32 (TF32 "
+                f"convs, PyTorch's default), remat {'on' if remat else 'off'}"
+                f": {ms:.3f} ms a step (CUDA events, mean of {c['timed']} "
+                f"after {c['warm']}; a fresh seeded batch a step), "
+                f"{c['batch'] * 1e3 / ms:.1f} images a "
+                f"second, peak device memory {peak:.2f} GiB; losses "
+                f"{losses[0]:.4f} -> {losses[-1]:.4f} (min {min(losses):.4f}"
+                f", max {max(losses):.4f}; fresh random labels, each above "
+                f"ln({trainer.num_sample}) / 2 = {floor:.3f})")
+    trainer.remat = False
+    images, labels = batches[0]
+    busy = device_busy(torch, lambda: trainer.train_step(state, images,
+                                                         labels))
+    rep.say(f"train {c['rec']}: one step (remat off) under torch.profiler: "
+            + busy_said(busy))
+    out["busy"] = busy
+    d = out[True]
+    rep.say(f"train {c['rec']}: remat costs {d['ms'] / out[False]['ms']:.3f}x"
+            f" the time a step and saves {out[False]['peak'] - d['peak']:.2f}"
+            f" GiB; the state's set-up (class matrix drawn on the CPU) "
+            f"{t_init:.1f} s")
+    return out
+
+
+def phase_train_learns(torch, rep):
+    """18c: ``TRAIN["learn"]`` memorizes one fixed batch: the last loss
+    below the first."""
+    from scrfd_arcface_facerecognition_tpu_torch.models import build_arcface
+    from scrfd_arcface_facerecognition_tpu_torch.train import ArcFaceTrainer
+
+    c = TRAIN["learn"]
+    trainer = ArcFaceTrainer(model=build_arcface(c["rec"]),
+                             num_classes=c["classes"], learning_rate=c["lr"],
+                             device=DEV)
+    state = trainer.init_state(0)
+    rng = np.random.default_rng(183)
+    images = torch.from_numpy(rng.normal(size=(c["batch"], 3, 112, 112))
+                              .astype(np.float32)).to(DEV)
+    labels = torch.from_numpy(rng.permutation(c["batch"]) % c["classes"]
+                              ).to(DEV)
+    losses = []
+    for _ in range(c["steps"]):
+        state, loss = trainer.train_step(state, images, labels)
+        losses.append(loss)
+    losses = [float(v) for v in losses]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"train {c['rec']} did not learn one fixed batch: {losses}")
+    rep.say(f"train {c['rec']}: one fixed batch of {c['batch']} images over "
+            f"{c['classes']} classes, lr {c['lr']}, {c['steps']} steps: loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f} (min {min(losses):.4f})")
+    return losses
+
+
+def run_cli(torch, module, args):
+    """``python -m <module> <args>`` from the repository root in a child
+    process (its own CUDA context); its standard output's lines."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-m", module] + list(args),
+                         cwd=repo, capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        fail(f"{module} exited {out.returncode}: "
+             f"{out.stderr.strip()[-2000:]}")
+    return out.stdout.splitlines()
+
+
+def said_after(lines, start):
+    for line in lines:
+        if start in line:
+            return line.split(start, 1)[1].strip()
+    fail(f"no line with {start!r} in {lines}")
+
+
+def phase_train_loop(torch, rep):
+    """18d: ``tools.train_arcface`` and ``tools.export_onnx --verify`` in
+    child processes; the file's preflight, its weights read back against
+    the checkpoint's, its embeddings against the trained module's; then
+    ``FacePipeline`` with phase 11's det_10g stand-in and the exported
+    embedder on 8 seeded 1080p frames, K1 counted and held to its plain
+    version."""
+    import shutil
+
+    from scrfd_arcface_facerecognition_tpu_torch import FacePipeline
+    from scrfd_arcface_facerecognition_tpu_torch.models import (
+        ARCFACE_CONFIGS, load_inference_variables, preflight_graph)
+    from scrfd_arcface_facerecognition_tpu_torch.models.config_from_graph import (
+        variables_from_onnx)
+    from scrfd_arcface_facerecognition_tpu_torch.models.weights import _leaves
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.pipeline import Embedder
+
+    c = TRAIN["loop"]
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase18")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lines = run_cli(torch, "scrfd_arcface_facerecognition_tpu_torch.tools."
+                    "train_arcface", [
+                        "--synthetic", str(c["steps"]), "--variant", c["rec"],
+                        "--batch", str(c["batch"]), "--device", DEV,
+                        "--out", os.path.join(out_dir, "ckpt")])
+    ckpt = said_after(lines, "saved ")
+    t_train = time.perf_counter() - t0
+    onnx = os.path.join(out_dir, f"{c['rec']}.onnx")
+    lines = run_cli(torch, "scrfd_arcface_facerecognition_tpu_torch.tools."
+                    "export_onnx", ["--variant", c["rec"], "--checkpoint",
+                                    ckpt, "--out", onnx, "--verify",
+                                    "--device", DEV])
+    verify_cos = float(said_after(lines, "cosine(module, onnx) = "))
+    t_export = time.perf_counter() - t0 - t_train
+    info = preflight_graph(onnx, "rec")
+    want = dict(_leaves(load_inference_variables(ckpt)))
+    cfg, tree = variables_from_onnx(onnx, name=c["rec"])
+    got = dict(_leaves(tree))
+    if got.keys() != want.keys():
+        fail(f"the exported file's tree has other leaves than the "
+             f"checkpoint's: {sorted(set(got) ^ set(want))[:5]}")
+    unequal = [k for k in want if not np.array_equal(got[k], want[k])]
+    if unequal:
+        fail(f"the exported file's weights differ from the checkpoint's at "
+             f"{unequal[:5]}")
+    variables = load_inference_variables(ckpt)
+    graph = Embedder(onnx_path=onnx, device=DEV)
+    native = Embedder(config=ARCFACE_CONFIGS[c["rec"]], variables=variables,
+                      device=DEV)
+    crops = np.random.default_rng(184).integers(
+        0, 255, (c["crops"], 112, 112, 3), dtype=np.uint8)
+    with full_f32(torch):
+        eg = torch.from_numpy(graph.get_feat(crops))
+        en = torch.from_numpy(native.get_feat(crops))
+    cos = torch.nn.functional.cosine_similarity(eg, en)
+    if float(cos.min()) < TOL_TRAIN["cos"]:
+        fail(f"the exported embedder through the executor: cosine "
+             f"{float(cos.min())} to the trained module's, below "
+             f"{TOL_TRAIN['cos']}")
+    rep.say(f"train -> export: tools.train_arcface --synthetic {c['steps']} "
+            f"--variant {c['rec']} --batch {c['batch']} --device {DEV} in "
+            f"{t_train:.1f} s (child process, start-up included) -> "
+            f"{os.path.basename(ckpt)}; tools.export_onnx --verify in "
+            f"{t_export:.1f} s, its cosine {verify_cos:.7f}; preflight "
+            f"passes ({info['family']}, {info['n_nodes']} nodes); "
+            f"variables_from_onnx "
+            f"reads back {len(want)} leaves bit-equal to "
+            f"load_inference_variables(checkpoint) ({cfg.name}); "
+            f"Embedder(onnx_path=) on the card vs the trained module at f32 "
+            f"(TF32 off) on {c['crops']} crops: cosine min "
+            f"{float(cos.min()):.7f} (tolerance {TOL_TRAIN['cos']})")
+
+    s = STANDIN
+    det, _ = standin_parts(torch, torch.float32, conf_thres=s["conf"],
+                           pre_nms=s["pre_nms"], max_det=s["max_det"])
+    pipe = FacePipeline(detector=det, embedder=graph,
+                        gallery_capacity=s["gallery"], device=DEV)
+    rng = np.random.default_rng(185)
+    pipe.set_gallery(rng.normal(size=(s["gallery"], 512)).astype(np.float32),
+                     [f"p{i}" for i in range(s["gallery"])])
+    nb, (h, w) = c["frames"], c["hw"]
+    frames = torch.from_numpy(rng.integers(0, 255, (nb, h, w, 3),
+                                           dtype=np.uint8)).to(DEV)
+    pipe(frames, max_num=s["max_num"])                # warm-up
+    torch.cuda.synchronize()
+    wa.launches = 0
+    t1 = time.perf_counter()
+    with k1_capture() as calls:
+        for _ in range(c["calls"]):
+            o = pipe(frames, max_num=s["max_num"])
+        torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t1) * 1e3 / c["calls"]
+    launches = wa.launches
+    if launches == 0:
+        fail("train -> serve: the pipeline launched K1 no time")
+    faces = int(o.valid.sum())
+    ev = o.embeddings[o.valid]
+    if faces == 0 or not bool(torch.isfinite(ev).all()) or not bool(
+            ((ev.norm(dim=-1) - 1).abs() < 1e-3).all()):
+        fail(f"train -> serve: {faces} faces, embeddings not finite and "
+             f"unit-norm")
+    err, summary = k1_on_path(torch, wa, calls)
+    if err > TOL_U8:
+        fail(f"train -> serve: K1 vs plain {err} u8 on the path's inputs")
+    rep.say(f"train -> serve: FacePipeline with the det_10g stand-in and the "
+            f"exported {c['rec']} (the graph executor, f32) on {nb} seeded "
+            f"{h}x{w} frames: {faces} faces of {nb * s['max_num']} slots, "
+            f"embeddings finite and unit-norm, {call_ms:.2f} ms a call; K1 "
+            f"launches {launches} over {c['calls']} calls; K1 vs plain on "
+            f"{summary}: {err:.6g} u8")
+    return dict(launches=launches, err=err)
+
+
+def phase_train(torch, rep):
+    """18: (a) card vs CPU with TF32 off, (b) the full-width step, (c) it
+    learns, (d) the loop through the CLIs to the pipeline."""
+    t0 = time.perf_counter()
+    with full_f32(torch):
+        cmp = phase_train_card_vs_cpu(torch, rep)
+    t1 = time.perf_counter()
+    full = phase_train_full(torch, rep)
+    learn = phase_train_learns(torch, rep)
+    t2 = time.perf_counter()
+    loop = phase_train_loop(torch, rep)
+    rep.say(f"phase 18 took {time.perf_counter() - t0:.1f} s: (a) "
+            f"{t1 - t0:.1f}, (b)-(c) {t2 - t1:.1f}, (d) "
+            f"{time.perf_counter() - t2:.1f}")
+    return dict(cmp=cmp, full=full, learn=learn, **loop)
+
+
 def main():
     import torch
 
@@ -4086,17 +4492,20 @@ def main():
     rep.say(f"phases 16 and 17 took {t17 - t16:.1f} s and "
             f"{time.perf_counter() - t17:.1f} s")
 
-    # 18. kernels
+    # 18. train, checkpoint, export, serve
+    tr = phase_train(torch, rep)
+
+    # 19. kernels
     t2 = gal["times"]
     kernels = [{
         "name": wa.NAME, "route": "cuda",
         "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/warp_align.cu",
         "replaces": "scrfd_arcface_facerecognition_tpu/ops/pallas_warp.py:430",
         "launches": launches + bf["launches"] + rt["launches"]
-        + ox["launches"] + cam["launches"] + web["k1"],
+        + ox["launches"] + cam["launches"] + web["k1"] + tr["launches"],
         "max_abs_err": max(err3, err4, sp["err1"], fa["err"], eng["err"],
                            bf["err"], rt["err"], ox["err"], cam["err"],
-                           web["err1"]),
+                           web["err1"], tr["err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     }, {

@@ -37,3 +37,16 @@ def full_f32_matmul() -> Iterator[None]:
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+@contextlib.contextmanager
+def full_f32() -> Iterator[None]:
+    """f32 convolutions and matmuls without TF32 inside the block (cuDNN's
+    flag and the matmul precision), the settings restored after it."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with full_f32_matmul():
+            yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32

@@ -7,7 +7,8 @@ feature map in NHWC order, as the reference does, so the FC weight carries
 over from the Flax tree as a plain transpose. Submodule names follow the
 JAX package's Flax names. ``dtype`` is the compute dtype
 (``layers.set_compute_dtype``); parameters stay float32 and the embedding
-leaves the model as float32, as the JAX models cast it.
+leaves the model as float32, as the JAX models cast it (float64 from a
+model a trainer runs in double).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 from torch import nn
 
 from .layers import (BatchNorm1d, BatchNorm2d, Conv2d, ConvBN, Linear, PReLU,
-                     set_compute_dtype)
+                     at_least_f32, remat_call, set_compute_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +56,17 @@ class ArcFaceConfig:
 
 def _flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).flatten(1)
+
+
+def _run_blocks(model: nn.Module, x: torch.Tensor, remat: bool
+                ) -> torch.Tensor:
+    """The trunk's blocks in order; with ``remat`` in training each block's
+    activations are recomputed in the backward pass."""
+    remat = remat and model.training
+    for name in model.blocks:
+        block = getattr(model, name)
+        x = remat_call(block, x) if remat else block(x)
+    return x
 
 
 class IBasicBlock(nn.Module):
@@ -113,12 +125,12 @@ class IResNet(nn.Module):
         self.features_bn = BatchNorm1d(cfg.emb_dim, eps=1e-5)
         set_compute_dtype(self, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """``remat``: in training, recompute each block in the backward
+        pass (the trainer's option)."""
         x = self.stem_prelu(self.stem_bn(self.stem_conv(x)))
-        for name in self.blocks:
-            x = getattr(self, name)(x)
-        x = _flatten_nhwc(self.head_bn(x))
-        return self.features_bn(self.fc(x)).float()
+        x = _flatten_nhwc(self.head_bn(_run_blocks(self, x, remat)))
+        return at_least_f32(self.features_bn(self.fc(x)))
 
 
 class MBFDepthWise(nn.Module):
@@ -178,12 +190,12 @@ class MobileFaceNet(nn.Module):
         self.features_bn = BatchNorm1d(cfg.emb_dim, eps=1e-5)
         set_compute_dtype(self, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.stem(x)
-        for name in self.blocks:
-            x = getattr(self, name)(x)
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """``remat``: in training, recompute each block in the backward
+        pass (the trainer's option)."""
+        x = _run_blocks(self, self.stem(x), remat)
         x = _flatten_nhwc(self.gdc(self.conv_sep(x)))
-        return self.features_bn(self.fc(x)).float()
+        return at_least_f32(self.features_bn(self.fc(x)))
 
 
 ARCFACE_CONFIGS = {

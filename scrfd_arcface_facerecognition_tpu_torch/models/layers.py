@@ -1,27 +1,35 @@
 """Shared building blocks (NCHW), with a compute dtype.
 
-Parameters stay float32. The casts sit where Flax's ``dtype=`` puts them
-in the JAX package: a conv, a dense layer and a PReLU compute in the
-compute dtype (bfloat16 on the card's serving path) on weights rounded to
-it once, by ``set_compute_dtype``, not on every call; BatchNorm and
-GroupNorm compute in float32 from their input in the compute dtype and
-hand back the compute dtype (``flax.linen.normalization._normalize``
-promotes ``x - mean`` to float32 and casts only the result).
+Parameters stay float32 (float64 only where a trainer checks its steps in
+double). The casts sit where Flax's ``dtype=`` puts them in the JAX
+package: a conv, a dense layer and a PReLU compute in the compute dtype
+(bfloat16 on the card's serving path) on weights rounded to it once, by
+``set_compute_dtype``, not on every call; BatchNorm and GroupNorm compute
+in float32 (or wider) from their input in the compute dtype and hand back
+the compute dtype (``flax.linen.normalization._normalize`` promotes ``x -
+mean`` to at least float32 and casts only the result).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+import contextlib
+from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils import checkpoint as _checkpoint
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is when wider (float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 class RoundedWeights:
     """A layer that computes in ``compute_dtype``. ``rounded`` names the
-    parameters used in that dtype; below float32 each gets a copy rounded
-    to it, a non-persistent buffer ``<name>_c`` (so state dicts and the
-    weights carrier see only the float32 parameters)."""
+    parameters used in that dtype; in a dtype other than the parameter's
+    each gets a copy rounded to it, a non-persistent buffer ``<name>_c``
+    (so state dicts and the weights carrier see only the parameters)."""
 
     rounded: Sequence[str] = ("weight", "bias")
     compute_dtype = torch.float32
@@ -30,7 +38,7 @@ class RoundedWeights:
         self.compute_dtype = dtype
         for name in self.rounded:
             p = getattr(self, name, None)
-            copy = (None if p is None or dtype == torch.float32
+            copy = (None if p is None or dtype == p.dtype
                     else p.detach().to(dtype))
             self.register_buffer(f"{name}_c", copy, persistent=False)
 
@@ -57,11 +65,32 @@ class _F32BatchNorm:
     PyTorch's batch_norm takes a bfloat16 input with float32 statistics
     and affine as it is, computes in float32 and rounds once: the same
     numbers as on ``x.float()``, without a float32 copy of the
-    activation."""
+    activation.
+
+    In training it normalizes with the batch's statistics and moves the
+    running ones as Flax does: ``(1 - momentum) * running + momentum *
+    batch`` with the biased batch variance (PyTorch's own update takes the
+    unbiased one, n / (n - 1) larger). ``hold_stats`` leaves them alone
+    while ``remat_call`` recomputes the forward in the backward pass."""
+
+    hold_stats = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype == torch.float32 or self.training:
-            return super().forward(x.float()).to(x.dtype)
+        if self.training:
+            xf = at_least_f32(x)
+            if not self.hold_stats:
+                dims = [0] + list(range(2, x.dim()))
+                with torch.no_grad():
+                    var, mean = torch.var_mean(xf, dims, correction=0)
+                    m = self.momentum
+                    self.running_mean.copy_(
+                        (1 - m) * self.running_mean + m * mean)
+                    self.running_var.copy_(
+                        (1 - m) * self.running_var + m * var)
+            return F.batch_norm(xf, None, None, self.weight, self.bias, True,
+                                0.0, self.eps).to(x.dtype)
+        if x.dtype == torch.float32:
+            return super().forward(x)
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, False, 0.0, self.eps)
 
@@ -72,6 +101,28 @@ class BatchNorm2d(_F32BatchNorm, nn.BatchNorm2d):
 
 class BatchNorm1d(_F32BatchNorm, nn.BatchNorm1d):
     pass
+
+
+@contextlib.contextmanager
+def _stats_held(block: nn.Module) -> Iterator[None]:
+    norms = [m for m in block.modules() if isinstance(m, _F32BatchNorm)]
+    for m in norms:
+        m.hold_stats = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.hold_stats = False
+
+
+def remat_call(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` with its activations recomputed in the backward pass
+    instead of kept (``jax.checkpoint``); the recomputation does not move
+    BatchNorm's running statistics a second time, so they move once a
+    step with remat as without it."""
+    return _checkpoint.checkpoint(
+        block, x, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _stats_held(block)))
 
 
 class GroupNorm(nn.GroupNorm):
@@ -98,11 +149,16 @@ class PReLU(RoundedWeights, nn.Module):
 def set_compute_dtype(model: nn.Module,
                       dtype: Optional[torch.dtype] = None) -> nn.Module:
     """Round ``model``'s weights for computing in ``dtype`` (float32 or
-    bfloat16); ``None`` re-rounds them at each layer's current dtype, as
-    the weight loaders do after they write new weights. Returns the
-    model."""
-    if dtype is not None and dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"compute dtype {dtype}: float32 or bfloat16")
+    bfloat16; float64 for a model whose parameters are float64, as a
+    trainer's check in double); ``None`` re-rounds them at each layer's
+    current dtype, as the weight loaders do after they write new weights.
+    Returns the model."""
+    double = dtype == torch.float64 and all(
+        p.dtype == torch.float64 for p in model.parameters())
+    if dtype is not None and dtype not in (torch.float32, torch.bfloat16) \
+            and not double:
+        raise ValueError(f"compute dtype {dtype}: float32 or bfloat16 "
+                         "(float64 for a model whose parameters are)")
     for m in model.modules():
         if isinstance(m, RoundedWeights):
             m.round_weights(m.compute_dtype if dtype is None else dtype)

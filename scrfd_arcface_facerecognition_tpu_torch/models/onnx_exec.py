@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..device import full_f32_matmul, resolve_device
+from ..device import full_f32, resolve_device
 from .onnx_proto import TENSOR_DTYPES, OnnxGraph, OnnxNode, load_onnx
 
 
@@ -282,13 +282,8 @@ class OnnxModel(nn.Module):
         """x (B, C, H, W) -> the graph's outputs in declared order."""
         if self.dtype != torch.float32 or x.device.type != "cuda":
             return self._run(x, self._buffers, None)
-        tf32 = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            with full_f32_matmul():
-                return self._run(x, self._buffers, None)
-        finally:
-            torch.backends.cudnn.allow_tf32 = tf32
+        with full_f32():
+            return self._run(x, self._buffers, None)
 
     def _run(self, x, bufs, shapes) -> List[torch.Tensor]:
         env = {n: bufs[k] for n, k in self._weights.items()}

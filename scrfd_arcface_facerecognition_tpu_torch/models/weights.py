@@ -15,14 +15,17 @@ port's submodules carry the Flax names, so a leaf's path maps directly:
   (3, 3, 3, C) stem first (``s2d_kernel_to_stem``, exact).
 
 ``variables_from_module`` is the inverse: a module's weights as such a
-tree (the ONNX importer's template). ``read_flax_msgpack`` reads a
-checkpoint that ``flax.serialization.msgpack_serialize`` wrote. This
-module reads numpy only; it needs neither JAX nor Flax.
+tree (the ONNX importer's template and the exporter's input).
+``read_flax_msgpack`` reads a checkpoint that
+``flax.serialization.msgpack_serialize`` wrote. ``train_state_from_jax``
+carries a JAX ``ArcFaceTrainer`` state (weights, class matrix, momentum,
+step) to the port's trainer. This module reads numpy only; it needs
+neither JAX nor Flax.
 """
 from __future__ import annotations
 
 import struct
-from typing import Any, Dict, Iterator, Mapping, Sequence, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -128,11 +131,19 @@ def read_flax_msgpack(data: bytes) -> Dict[str, Any]:
     return _unchunk(tree)
 
 
+def _float_array(leaf: Any) -> np.ndarray:
+    """A leaf as float32, or as float64 when it is (a tree trained in
+    double keeps its precision)."""
+    arr = np.asarray(leaf)
+    return arr if arr.dtype == np.float64 else arr.astype(np.float32)
+
+
 def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax ``{"params", "batch_stats"}`` tree -> PyTorch state dict."""
+    """Flax ``{"params", "batch_stats"}`` tree -> PyTorch state dict
+    (float32; float64 leaves stay float64)."""
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(variables.get("params", {})):
-        arr = np.asarray(leaf, dtype=np.float32)
+        arr = _float_array(leaf)
         name = path[-1]
         if name == "kernel":
             if path[-4:] == _STEM_PATH and arr.shape[:3] == (2, 2, 12):
@@ -149,7 +160,7 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
         out[".".join(path[:-1] + (name,))] = torch.tensor(arr)
     stats = {"mean": "running_mean", "var": "running_var"}
     for path, leaf in _leaves(variables.get("batch_stats", {})):
-        arr = np.asarray(leaf, dtype=np.float32)
+        arr = _float_array(leaf)
         out[".".join(path[:-1] + (stats[path[-1]],))] = torch.tensor(arr)
     return out
 
@@ -177,9 +188,16 @@ def variables_from_module(module: nn.Module) -> Dict[str, Dict[str, Any]]:
     numpy f32 (the inverse of ``state_dict_from_flax``): 4-D ``weight`` ->
     conv ``kernel`` (kh, kw, I/groups, O), 2-D -> dense ``kernel`` (in,
     out), 1-D -> norm ``scale``; running stats -> ``mean`` / ``var``."""
+    return variables_from_state_dict(module.state_dict())
+
+
+def variables_from_state_dict(state: Mapping[str, torch.Tensor]
+                              ) -> Dict[str, Dict[str, Any]]:
+    """A state dict (or tensors named like one) as the Flax tree
+    ``variables_from_module`` gives."""
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
-    for key, t in module.state_dict().items():
+    for key, t in state.items():
         path = key.split(".")
         name = path[-1]
         if name == "num_batches_tracked":
@@ -198,3 +216,49 @@ def variables_from_module(module: nn.Module) -> Dict[str, Dict[str, Any]]:
         _put(params, path[:-1] + [name], np.ascontiguousarray(arr))
     return {"params": params, "batch_stats": stats} if stats else {
         "params": params}
+
+
+def _trace_tree(opt_state: Any) -> Optional[Mapping]:
+    """The momentum tree of an optax chain's state: the ``trace`` of its
+    ``TraceState`` (a NamedTuple, or a dict once restored raw)."""
+    if isinstance(opt_state, Mapping):
+        if "trace" in opt_state:
+            return opt_state["trace"]
+        parts = list(opt_state.values())
+    elif hasattr(opt_state, "_fields") and "trace" in opt_state._fields:
+        return opt_state.trace
+    elif isinstance(opt_state, (tuple, list)):
+        parts = list(opt_state)
+    else:
+        parts = []
+    for part in parts:
+        found = _trace_tree(part)
+        if found is not None:
+            return found
+    return None
+
+
+def train_state_parts(backbone: Mapping, head_w: Any, trace: Mapping,
+                      step: Any) -> Dict[str, Any]:
+    """A trainer state in Flax layout -> the port trainer's parts:
+    ``{"backbone": state dict, "head_w": (D, C) tensor, "trace": {parameter
+    name: tensor, ..., "head_w": tensor}, "step": int}``. ``trace`` is
+    ``{"backbone": params tree, "head_w": array}``; its leaves take the
+    same transposes as the weights they follow."""
+    momentum = state_dict_from_flax({"params": trace["backbone"]})
+    momentum["head_w"] = torch.tensor(_float_array(trace["head_w"]))
+    return {"backbone": state_dict_from_flax(backbone),
+            "head_w": torch.tensor(_float_array(head_w)),
+            "trace": momentum, "step": int(np.asarray(step))}
+
+
+def train_state_from_jax(state: Any) -> Dict[str, Any]:
+    """The JAX package's ``ArcFaceTrainer`` ``TrainState`` with numpy
+    leaves (``jax.tree.map(np.asarray, state)``) -> the port trainer's
+    parts (``train_state_parts``): the backbone through
+    ``state_dict_from_flax``, ``head_w`` as it is (D, C), optax's SGD
+    momentum trace with the weights' transposes, and ``step``."""
+    trace = _trace_tree(state.opt_state)
+    if trace is None:
+        raise ValueError("the state's opt_state holds no momentum trace")
+    return train_state_parts(state.backbone, state.head_w, trace, state.step)

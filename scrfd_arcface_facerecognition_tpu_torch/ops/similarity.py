@@ -15,7 +15,9 @@ from .nms import stable_top_k
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,
                  eps: float = 1e-12) -> torch.Tensor:
-    norm = x.to(torch.float32).square().sum(dim=dim, keepdim=True).sqrt()
+    # float32 at least (float64 stays float64)
+    wide = torch.promote_types(x.dtype, torch.float32)
+    norm = x.to(wide).square().sum(dim=dim, keepdim=True).sqrt()
     return (x / norm.clamp_min(eps)).to(x.dtype)
 
 

@@ -29,7 +29,10 @@ def test_import_leaves_no_jax_in_sys_modules():
         "       'utils.drawing', 'apps.realtime', 'models.onnx_exec',\n"
         "       'models.graph_models', 'models.preflight',\n"
         "       'runtime.decode_pool', 'apps.multistream', 'apps.dualstream',\n"
-        "       'apps.webui', 'apps.webapp')\n"
+        "       'apps.webui', 'apps.webapp', 'models.onnx_write',\n"
+        "       'models.onnx_export', 'models.checkpoints', 'train',\n"
+        "       'train.schedules', 'train.arcface_train',\n"
+        "       'tools.train_arcface', 'tools.export_onnx')\n"
         "bad += [m for m in new if p.__name__ + '.' + m not in sys.modules]\n"
         "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
@@ -71,7 +74,11 @@ def test_no_module_of_the_port_imports_jax_flax_or_the_jax_package():
                 "apps/realtime.py", "models/onnx_exec.py",
                 "models/graph_models.py", "models/preflight.py",
                 "runtime/decode_pool.py", "apps/multistream.py",
-                "apps/dualstream.py", "apps/webui.py", "apps/webapp.py"):
+                "apps/dualstream.py", "apps/webui.py", "apps/webapp.py",
+                "models/onnx_write.py", "models/onnx_export.py",
+                "models/checkpoints.py", "train/__init__.py",
+                "train/schedules.py", "train/arcface_train.py",
+                "tools/train_arcface.py", "tools/export_onnx.py"):
         assert mod in names, mod
     for path in files:
         bad = set(_imported_roots(path)) & set(_FORBIDDEN)
@@ -181,7 +188,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     app_args = realtime.parse_args(["--det-weight", "det_500m.onnx",
                                     "--rec-weight", "w600k_mbf.onnx",
                                     "--source", "missing.mp4"])
-    from scrfd_arcface_facerecognition_tpu_torch.models import onnx_model
+    from scrfd_arcface_facerecognition_tpu_torch.models import (
+        build_arcface, onnx_model)
+    from scrfd_arcface_facerecognition_tpu_torch.train import ArcFaceTrainer
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        export_onnx, train_arcface)
 
     for make in (FacePipeline, Detector, Embedder, FaceAnalysis,
                  lambda: Detector(onnx_path="det_500m.onnx"),
@@ -200,7 +211,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: realtime.run(app_args),
                  lambda: multistream.run(multi_args),
                  lambda: dualstream.run(dual_args),
-                 lambda: run_web_server(port=0)):
+                 lambda: run_web_server(port=0),
+                 lambda: ArcFaceTrainer(model=build_arcface("w600k_mbf"),
+                                        num_classes=4),
+                 lambda: train_arcface.main(["--synthetic", "1"]),
+                 lambda: export_onnx.main(["--variant", "w600k_mbf",
+                                           "--out", os.devnull])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert resolve_device("cpu").type == "cpu"

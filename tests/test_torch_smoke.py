@@ -958,3 +958,135 @@ def test_web_phase_fails_on_an_error_a_handler_logs(monkeypatch):
                                            "port logged)"):
         chip_smoke.phase_web(torch, rep, app, dict(ms_visit=1.0,
                                                    ms_pair=2.0))
+
+
+def _train_phase_on_the_cpu(monkeypatch):
+    """Phase 18 at small sizes on the CPU: tiny MobileFaceNet / iResNet in
+    place of w600k_mbf / w600k_r50 (the embedder 512 wide), the CLIs run
+    in this process, a tiny seeded detector in place of the det_10g
+    stand-in; K1 counted where the wrapper would count it."""
+    import contextlib
+    import importlib
+    import io
+
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+    from scrfd_arcface_facerecognition_tpu_torch.models import arcface as TA
+    from scrfd_arcface_facerecognition_tpu_torch.models import scrfd as TS
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.pipeline import Detector
+
+    class Event(_Event):
+        def elapsed_time(self, other):
+            return 1.0
+
+    rep, said = _no_card(monkeypatch, wa)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    for name in ("empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setitem(TA.ARCFACE_CONFIGS, "w600k_mbf", TA.ArcFaceConfig(
+        name="w600k_mbf", arch="mobilefacenet", mbf_blocks=(1, 1, 1, 1),
+        mbf_scale=1))
+    monkeypatch.setitem(TA.ARCFACE_CONFIGS, "w600k_r50", TA.ArcFaceConfig(
+        name="w600k_r50", arch="iresnet", stage_blocks=(1, 1, 1, 1),
+        stage_filters=(8, 8, 16, 16)))
+    monkeypatch.setattr(chip_smoke, "TRAIN", dict(
+        cmp=dict(rec="w600k_mbf", batch=4, classes=20, steps=2, rate=0.5),
+        full=dict(rec="w600k_r50", batch=4, classes=1000, rate=0.1, warm=1,
+                  timed=1),
+        learn=dict(rec="w600k_mbf", batch=8, classes=8, steps=6, lr=0.1),
+        loop=dict(rec="w600k_mbf", steps=1, batch=2, crops=3, frames=2,
+                  hw=(120, 160), calls=1)))
+    small = dict(max_num=3, gallery=4, conf=0.0, pre_nms=32, max_det=4)
+    monkeypatch.setattr(chip_smoke, "STANDIN", dict(frames=2, hw=(120, 160),
+                                                    **small))
+    tiny_det = TS.SCRFDConfig("det_10g", 8, (1, 1, 1, 1), (8, 8, 16, 16),
+                              neck_filters=8, head_stacks=1, head_filters=16)
+    monkeypatch.setattr(chip_smoke, "standin_parts", lambda torch_, dtype,
+                        **kw: (Detector(config=tiny_det, dtype=dtype,
+                                        device="cpu", **kw), None))
+
+    def in_process(torch_, module, args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            importlib.import_module(module).main(list(args))
+        return buf.getvalue().splitlines()
+
+    monkeypatch.setattr(chip_smoke, "run_cli", in_process)
+    crops = ops.warp_align_crops
+
+    def counted(*a, **k):
+        wa.launches += 1
+        return crops(*a, **k)
+
+    monkeypatch.setattr(ops, "warp_align_crops", counted)
+    return rep, said
+
+
+def test_train_phase_rehearsed_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 18: card (here the CPU) against the CPU within the stated
+    tolerances on both softmaxes, the full-width step timed with and
+    without remat, one batch memorized, the CLIs' checkpoint exported,
+    read back bit-equal and served through the pipeline with K1 counted
+    and held; TF32's settings left as they were."""
+    monkeypatch.chdir(tmp_path)
+    before = _tf32()
+    rep, said = _train_phase_on_the_cpu(monkeypatch)
+    out = chip_smoke.phase_train(torch, rep)
+    assert _tf32() == before
+    assert out["launches"] > 0 and out["err"] == 0.0
+    assert set(out["cmp"]) == {"full softmax", "Partial FC 0.5"}
+    for r in out["cmp"].values():                  # CPU against itself
+        assert r["loss32"][0] == r["loss32"][1] and r["rel64"] == 0.0
+        for gaps in r["gaps"]:
+            assert set(gaps) == {"weights", "BN statistics", "momentum"}
+            assert all(share == 0.0 for share, _ in gaps.values())
+    assert set(out["full"]) == {False, True, "busy"}
+    assert out["full"]["busy"] is None           # no profile off the card
+    assert out["learn"][-1] < out["learn"][0]
+    text = "\n".join(said)
+    for start in ("train card vs CPU (w600k_mbf full width, batch 4",
+                  "remat on:", "remat off:", "remat costs",
+                  "one fixed batch of 8 images", "train -> export:",
+                  "bit-equal to load_inference_variables(checkpoint)",
+                  "train -> serve: FacePipeline", "phase 18 took"):
+        assert start in text, start
+
+
+def test_train_phase_fails_past_the_bound():
+    """A tensor past ``atol + rtol * max`` fails the phase with its name;
+    within it, the largest share of each kind and its tensor come back."""
+    want = {"backbone": {"w": torch.ones(4, dtype=torch.float64),
+                         "bn.running_var": torch.ones(2, dtype=torch.float64)},
+            "head_w": torch.ones(2, 3, dtype=torch.float64),
+            "trace": {"w": torch.zeros(4, dtype=torch.float64),
+                      "head_w": torch.zeros(2, 3, dtype=torch.float64)}}
+    got = {"backbone": {k: v.clone() for k, v in want["backbone"].items()},
+           "head_w": want["head_w"] + 5e-11,
+           "trace": {k: v.clone() for k, v in want["trace"].items()}}
+    out = chip_smoke.worst_gaps(got, want, "x")
+    share, name = out["weights"]
+    assert name == "head_w"
+    assert share == pytest.approx(5e-11 / (1e-12 + 1e-10), rel=1e-3)
+    assert out["BN statistics"] == (0.0, "backbone.bn.running_var")
+    assert out["momentum"][0] == 0.0
+    got["trace"]["head_w"][1, 2] = 2e-12
+    with pytest.raises(RuntimeError, match="x trace.head_w: 2 x"):
+        chip_smoke.worst_gaps(got, want, "x")
+
+
+def test_train_phase_fails_on_learned_random_labels(monkeypatch, tmp_path):
+    """Phase 18b's losses come from fresh random labels: a step whose loss
+    drops below ln(sampled classes) / 2 fails the phase."""
+    from scrfd_arcface_facerecognition_tpu_torch import train as TT
+
+    monkeypatch.chdir(tmp_path)
+    rep, _ = _train_phase_on_the_cpu(monkeypatch)
+    step = TT.ArcFaceTrainer.train_step
+
+    def learned(self, *a, **k):
+        state, loss = step(self, *a, **k)
+        return state, loss * 0.0 + 1.0
+    monkeypatch.setattr(TT.ArcFaceTrainer, "train_step", learned)
+    with pytest.raises(RuntimeError, match=r"below ln\(100\) / 2"):
+        chip_smoke.phase_train_full(torch, rep)
