@@ -227,8 +227,37 @@ non-zero exit if it fails:
    ``FacePipeline`` with phase 11's det_10g stand-in and the exported
    embedder on 8 seeded 1080p frames, K1 counted and held to its plain
    version on the calls' inputs;
-19. one JSON line of every kernel's numbers (K1's launches are those of
-   phases 4, 13, 14, 15, 16, 17 and 18; K2's those of phases 7 and 17).
+19. the SCRFD detector: train, checkpoint, AP, export, serve
+   (``TRAIN_DET``): (a) the detector trainer on det_500m at full width,
+   640 x 640, batch 4, 8 faces at most, on the card and on the CPU from
+   one seeded state: the ATSS assignment equal on both devices, the first
+   step's loss at f32 with TF32 off (1e-5 relative), one and three steps
+   in float64: the losses within 1e-11 relative, n_pos equal and every
+   tensor (weights, BN statistics, momentum) within 1e-12 + 1e-10 of its
+   largest magnitude; (b) det_10g at ``tools.train_scrfd``'s defaults
+   (640 x 640, batch 32, 32 faces at most), 3 warm-up and 10 timed steps
+   on fresh synthetic batches: ms a step (CUDA events), images a second,
+   peak device memory, every loss finite and n_pos > 0; one step under
+   ``torch.profiler`` (the device's busy share and longest events) and the
+   device time of the kernels launched in each of the trainer's spans
+   (network forward, assignment + loss, backward, update); (c) det_500m
+   memorizes one batch of 4 in 30 steps (the last loss below the first);
+   (d) a retinaface ``label.txt`` of 16 seeded images (some faces'
+   landmarks unlabeled) through ``parse_wider_annotations`` and
+   ``batches_from_annotations`` with an injected loader (no cv2), det_500m
+   trained five passes over those batches and checkpointed,
+   ``evaluate_detector``'s AP (finite, in [0, 1]), ``tools.train_scrfd --synthetic 3`` and
+   ``tools.export_onnx --verify`` of the checkpoint in child processes,
+   ``preflight_graph`` on the file and ``variables_from_onnx`` bit-equal to
+   ``load_inference_variables``; then ``FacePipeline(det_onnx=<the
+   file>)`` and ``FacePipeline(detector=Detector(variables=<the
+   checkpoint>))`` with phase 11's w600k_r50 stand-in on 8 seeded 1080p
+   frames at f32 (TF32 off), the threshold set below the trained
+   detector's top anchor scores: faces held to the f32 budget, K1 counted
+   (the phase fails if it warped no crop) and held to its plain version;
+20. one JSON line of every kernel's numbers (K1's launches are those of
+   phases 4, 13, 14, 15, 16, 17, 18 and 19; K2's those of phases 7 and
+   17).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside it, the script exits non-zero and prints no
@@ -346,6 +375,20 @@ TRAIN = dict(
 # after three; the exported embedder's cosine
 TOL_TRAIN = dict(loss=1e-5, loss64=1e-11, double=(1e-12, 1e-10),
                  cos=0.9999)
+# phase 19, the detector: (a) card vs CPU, (b) det_10g at
+# tools.train_scrfd's defaults, (c) one batch memorized, (d) a labelled set
+# through the data path (one shuffled pass, trained over ``passes`` times),
+# training, AP, export and the pipeline (conf between the conf_ranks-th
+# highest anchor scores of the frames)
+TRAIN_DET = dict(
+    cmp=dict(det="det_500m", size=640, batch=4, max_gt=8, steps=3),
+    full=dict(det="det_10g", size=640, batch=32, max_gt=32, warm=3,
+              timed=10),
+    learn=dict(det="det_500m", size=640, batch=4, max_gt=8, steps=30,
+               lr=0.01),
+    loop=dict(det="det_500m", size=640, images=16, batch=4, max_gt=8,
+              passes=5, lr=0.01, cli_steps=3, frames=8, hw=(1080, 1920),
+              calls=2, conf_ranks=(16, 64)))
 
 
 def fail(msg):
@@ -2450,10 +2493,14 @@ def device_busy(torch, fn):
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t) * 1e3
     # the device's own events: kernels, copies and sets (the runtime's
-    # "Command Buffer Full" waits are host-side, though tagged CUDA)
+    # "Command Buffer Full" waits are host-side, though tagged CUDA; a
+    # profiler span of the detector trainer shows on the device's timeline
+    # as a range over its kernels, not as work)
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA
-           and not e.name.startswith("Command Buffer")]
+           and not e.name.startswith("Command Buffer")
+           and not getattr(e, "is_user_annotation", False)
+           and e.name not in DET_SPANS]
     if not dev:
         return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
@@ -4408,6 +4455,545 @@ def phase_train(torch, rep):
     return dict(cmp=cmp, full=full, learn=learn, **loop)
 
 
+# ---------------------------------------------------------------------
+# phase 19: the SCRFD detector: train, checkpoint, AP, export, serve
+
+# the trainer's annotate spans (train/scrfd_train.py), in step order
+DET_SPANS = ("scrfd_train.forward", "scrfd_train.assign_loss",
+             "scrfd_train.backward", "scrfd_train.update")
+
+
+def det_batch(torch, rng, c):
+    """A ``synthetic_detection_batch`` of ``c``'s size and faces as
+    tensors, the images NCHW."""
+    from scrfd_arcface_facerecognition_tpu_torch.train import (
+        synthetic_detection_batch)
+
+    images, boxes, kps, valid = synthetic_detection_batch(
+        rng, c["batch"], (c["size"], c["size"]), max_gt=c["max_gt"])
+    return (torch.from_numpy(images).permute(0, 3, 1, 2).contiguous(),
+            torch.from_numpy(boxes), torch.from_numpy(kps),
+            torch.from_numpy(valid))
+
+
+def det_trainer(torch, variant, size, device, **kw):
+    from scrfd_arcface_facerecognition_tpu_torch.models import build_scrfd
+    from scrfd_arcface_facerecognition_tpu_torch.train import (
+        SCRFDLossConfig, SCRFDTrainer)
+
+    return SCRFDTrainer(model=build_scrfd(variant),
+                        loss_cfg=SCRFDLossConfig(input_size=(size, size)),
+                        device=device, **kw)
+
+
+def det_run(torch, trainer, parts, batch, steps):
+    """``steps`` updates from ``parts`` on one batch: each state's parts
+    (on the CPU), the losses and n_pos."""
+    from scrfd_arcface_facerecognition_tpu_torch.train import state_parts
+
+    state = trainer.state_from(parts)
+    batch = [t.to(trainer.device) for t in batch]
+    states, losses, n_pos = [], [], []
+    for _ in range(steps):
+        state, loss, m = trainer.train_step(state, *batch)
+        states.append(state_parts(state))
+        losses.append(float(loss))
+        n_pos.append(int(m["n_pos"]))
+    return states, losses, n_pos
+
+
+def phase_det_card_vs_cpu(torch, rep):
+    """19a: ``TRAIN_DET["cmp"]`` on the card and on the CPU from one seeded
+    state: the first step's loss at float32 (TF32 off), then one and three
+    steps in float64, every tensor held to ``TOL_TRAIN["double"]``, the
+    losses to ``TOL_TRAIN["loss64"]``; the ATSS assignment and n_pos
+    equal."""
+    from scrfd_arcface_facerecognition_tpu_torch.train import (
+        SCRFDLossConfig, atss_assign, state_parts)
+    from scrfd_arcface_facerecognition_tpu_torch.train.scrfd_train import (
+        _anchor_boxes)
+
+    c = TRAIN_DET["cmp"]
+    batch = det_batch(torch, np.random.default_rng(190), c)
+    centers, aboxes, levels = _anchor_boxes(SCRFDLossConfig(
+        input_size=(c["size"], c["size"])))
+    for dtype in (torch.float32, torch.float64):
+        args = (batch[1].to(dtype), batch[3], torch.from_numpy(centers).to(
+            dtype), torch.from_numpy(aboxes).to(dtype), levels)
+        want = atss_assign(*args)[0]
+        got = atss_assign(*[a.to(DEV) if hasattr(a, "to") else a
+                            for a in args])[0].cpu()
+        if not torch.equal(got, want):
+            fail(f"det train card vs CPU: the ATSS assignment differs at "
+                 f"{int((got != want).sum())} anchors ({dtype})")
+    n_assigned = int((want >= 0).sum())
+    runs = {}
+    t0 = time.perf_counter()
+    for dtype, steps in ((torch.float32, 1), (torch.float64, c["steps"])):
+        cpu = det_trainer(torch, c["det"], c["size"], "cpu", dtype=dtype)
+        card = det_trainer(torch, c["det"], c["size"], DEV, dtype=dtype)
+        parts = state_parts(cpu.init_state(0))
+        b = tuple(t.to(dtype) if t.is_floating_point() else t for t in batch)
+        runs[dtype] = (det_run(torch, card, parts, b, steps),
+                       det_run(torch, cpu, parts, b, steps))
+    t_run = time.perf_counter() - t0
+    (_, got32, np32), (_, want32, wnp32) = runs[torch.float32]
+    rel32 = abs(got32[0] - want32[0]) / abs(want32[0])
+    if rel32 > TOL_TRAIN["loss"] or np32 != wnp32:
+        fail(f"det train card vs CPU, float32: step-1 loss {got32[0]!r} "
+             f"against {want32[0]!r} ({rel32:.3g} relative), n_pos "
+             f"{np32} against {wnp32}")
+    (got, got_loss, gnp), (want, want_loss, wnp) = runs[torch.float64]
+    rel64 = max(abs(g - w) / abs(w) for g, w in zip(got_loss, want_loss))
+    if rel64 > TOL_TRAIN["loss64"] or gnp != wnp:
+        fail(f"det train card vs CPU, float64: losses {got_loss} against "
+             f"{want_loss}, n_pos {gnp} against {wnp}")
+    gaps = [worst_gaps(got[i], want[i], f"det train card vs CPU, float64, "
+                       f"step {i + 1}") for i in (0, c["steps"] - 1)]
+    atol, rtol = TOL_TRAIN["double"]
+    worst = max(s for g in gaps for s, _ in g.values())
+    rep.say(f"det train card vs CPU ({c['det']} full width, "
+            f"{c['size']}x{c['size']}, batch {c['batch']}, max_gt "
+            f"{c['max_gt']}): ATSS assignment equal on both devices in "
+            f"float32 and float64 ({n_assigned} positive anchors); float32 "
+            f"(TF32 off) step-1 loss card {got32[0]:.7f} CPU "
+            f"{want32[0]:.7f} ({rel32:.3g} relative, tolerance "
+            f"{TOL_TRAIN['loss']}); float64 losses within {rel64:.3g} "
+            f"relative over {c['steps']} steps (tolerance "
+            f"{TOL_TRAIN['loss64']}), n_pos equal {gnp}; the worst tensor's "
+            f"share of {atol} + {rtol} x max after 1 step: "
+            f"{said_gaps(gaps[0])}; after {c['steps']}: {said_gaps(gaps[1])}"
+            f"; worst {worst:.3g}; both devices' steps {t_run:.1f} s")
+    return dict(loss32=(got32[0], want32[0]), rel64=rel64, gaps=gaps,
+                worst=worst, n_pos=gnp)
+
+
+def span_times(torch, fn):
+    """fn() under torch.profiler: for each of the trainer's ``DET_SPANS``
+    the device ms of the kernels launched inside it from the host thread
+    that opened it, and all the device events' ms. The backward's kernels
+    run on autograd's device thread, outside the span's children: they are
+    the total less the other spans. None on the CPU."""
+    if DEV != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = {n: 0.0 for n in DET_SPANS}
+    for e in events:
+        if e.name in spans and e.device_type != \
+                torch.autograd.DeviceType.CUDA:
+            spans[e.name] += e.device_time_total / 1e3
+    total = sum((e.time_range.end - e.time_range.start) / 1e3
+                for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.name not in spans
+                and not getattr(e, "is_user_annotation", False)
+                and not e.name.startswith("Command Buffer"))
+    spans["scrfd_train.backward"] = total - sum(
+        v for k, v in spans.items() if k != "scrfd_train.backward")
+    return dict(spans=spans, total=total)
+
+
+def phase_det_full(torch, rep):
+    """19b: ``TRAIN_DET["full"]`` (det_10g at tools.train_scrfd's defaults)
+    on the card: ms a step, images a second, peak device memory, every loss
+    finite and n_pos > 0; one step under torch.profiler: the device's busy
+    share, its longest events, and the device time of the network's
+    forward against the assignment and loss (the trainer's spans)."""
+    c = TRAIN_DET["full"]
+    trainer = det_trainer(torch, c["det"], c["size"], DEV)
+    state = trainer.init_state(0)
+    rng = np.random.default_rng(191)
+    t0 = time.perf_counter()
+    batches = [[t.to(DEV) for t in det_batch(torch, rng, c)]
+               for _ in range(c["warm"] + c["timed"])]
+    t_data = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, n_pos = [], []
+    for b in batches[:c["warm"]]:
+        state, loss, m = trainer.train_step(state, *b)
+        losses.append(loss)
+        n_pos.append(m["n_pos"])
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for b in batches[c["warm"]:]:
+        state, loss, m = trainer.train_step(state, *b)
+        losses.append(loss)
+        n_pos.append(m["n_pos"])
+    e.record()
+    e.synchronize()
+    ms = s.elapsed_time(e) / c["timed"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in losses]
+    n_pos = [int(v) for v in n_pos]
+    if not all(np.isfinite(losses)) or min(n_pos) <= 0:
+        fail(f"det train {c['det']}: losses {losses}, n_pos {n_pos}")
+    rep.say(f"det train {c['det']} full width, {c['size']}x{c['size']}, "
+            f"batch {c['batch']}, max_gt {c['max_gt']} (tools.train_scrfd's "
+            f"defaults), f32 (TF32 convs, PyTorch's default): {ms:.3f} ms a "
+            f"step (CUDA events, mean of {c['timed']} after {c['warm']}; a "
+            f"fresh synthetic_detection_batch a step), "
+            f"{c['batch'] * 1e3 / ms:.1f} images a second, peak device "
+            f"memory {peak:.2f} GiB; losses {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, n_pos {min(n_pos)}-{max(n_pos)}; the "
+            f"batches made on the host in {t_data:.1f} s")
+    b = batches[0]
+    busy = device_busy(torch, lambda: trainer.train_step(state, *b))
+    rep.say(f"det train {c['det']}: one step under torch.profiler: "
+            + busy_said(busy))
+    spans = span_times(torch, lambda: trainer.train_step(state, *b))
+    if spans is None:
+        rep.say(f"det train {c['det']}: the spans' device time not "
+                f"measured (no card)")
+    else:
+        sp = spans["spans"]
+        rep.say(f"det train {c['det']}: device ms of one step's kernels by "
+                f"the trainer's span, of {spans['total']:.3f} ms: "
+                + ", ".join(f"{k.split('.')[1]} {v:.3f}"
+                            for k, v in sp.items())
+                + " (backward: the kernels outside the other spans, run on "
+                "autograd's thread)")
+    return dict(ms=ms, ips=c["batch"] * 1e3 / ms, peak=peak, losses=losses,
+                n_pos=n_pos, busy=busy, spans=spans)
+
+
+def phase_det_learns(torch, rep):
+    """19c: ``TRAIN_DET["learn"]`` memorizes one fixed batch: the last
+    loss below the first, n_pos > 0."""
+    c = TRAIN_DET["learn"]
+    trainer = det_trainer(torch, c["det"], c["size"], DEV,
+                          learning_rate=c["lr"])
+    state = trainer.init_state(0)
+    batch = [t.to(DEV) for t in det_batch(torch, np.random.default_rng(192),
+                                          c)]
+    losses, n_pos = [], []
+    for _ in range(c["steps"]):
+        state, loss, m = trainer.train_step(state, *batch)
+        losses.append(loss)
+        n_pos.append(m["n_pos"])
+    losses = [float(v) for v in losses]
+    n_pos = [int(v) for v in n_pos]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and min(n_pos) > 0):
+        fail(f"det train {c['det']} did not learn one fixed batch: "
+             f"{losses}, n_pos {n_pos}")
+    rep.say(f"det train {c['det']}: one fixed batch of {c['batch']} at "
+            f"{c['size']}x{c['size']}, lr {c['lr']}, {c['steps']} steps: "
+            f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (min "
+            f"{min(losses):.4f}), n_pos {n_pos[0]}")
+    return losses
+
+
+def det_faces(i):
+    """Image ``i`` of phase 19d's labelled set: its (h, w) and its faces:
+    boxes (x1, y1, w, h), five landmarks each and their flags (the odd
+    faces' landmarks unlabeled, flag -1, as WIDER marks them)."""
+    rng = np.random.default_rng(1900 + i)
+    # small photos: the data path letterboxes on the host with
+    # np.einsum, as the JAX package does (seconds for a 640 x 480 photo)
+    h, w = ((120, 160), (180, 320), (160, 120), (150, 200))[i % 4]
+    faces = []
+    for j in range(int(rng.integers(1, 5))):
+        side = float(rng.uniform(0.12, 0.35) * min(h, w))
+        x1 = float(rng.uniform(0, w - side))
+        y1 = float(rng.uniform(0, h - side))
+        rel = np.asarray([[0.3, 0.4], [0.7, 0.4], [0.5, 0.6], [0.35, 0.8],
+                          [0.65, 0.8]])
+        pts = np.stack([x1 + rel[:, 0] * side, y1 + rel[:, 1] * side], 1)
+        flag = -1.0 if j % 2 else 0.0
+        faces.append(((x1, y1, side, side), pts, flag))
+    return (h, w), faces
+
+
+def det_label_file(path, n):
+    """A retinaface ``label.txt`` of phase 19d's ``n`` images."""
+    with open(path, "w") as f:
+        for i in range(n):
+            f.write(f"# img_{i:02d}.jpg\n")
+            for (x, y, w, h), pts, flag in det_faces(i)[1]:
+                lm = " ".join(f"{-1.0 if flag < 0 else px:.2f} "
+                              f"{-1.0 if flag < 0 else py:.2f} {flag:.1f}"
+                              for px, py in pts)
+                f.write(f"{x:.2f} {y:.2f} {w:.2f} {h:.2f} {lm} 0.5\n")
+
+
+def det_image(path):
+    """The injected image loader of phase 19d (the card's machine has no
+    cv2): a smooth seeded BGR u8 image with each labelled face drawn as a
+    skin-toned square with darker eyes and mouth."""
+    i = int(os.path.basename(path)[4:6])
+    (h, w), faces = det_faces(i)
+    rng = np.random.default_rng(2900 + i)
+    small = rng.uniform(40, 215, (h // 16 + 2, w // 16 + 2, 3))
+    ys = np.linspace(0, small.shape[0] - 1.001, h)
+    xs = np.linspace(0, small.shape[1] - 1.001, w)
+    y0, x0 = ys.astype(int), xs.astype(int)
+    fy, fx = (ys - y0)[:, None, None], (xs - x0)[None, :, None]
+    img = ((1 - fy) * ((1 - fx) * small[y0][:, x0] + fx * small[y0][:, x0 + 1])
+           + fy * ((1 - fx) * small[y0 + 1][:, x0]
+                   + fx * small[y0 + 1][:, x0 + 1]))
+    for (x, y, s, _), pts, _ in faces:
+        img[int(y):int(y + s), int(x):int(x + s)] = (120, 160, 210)
+        for px, py in pts:
+            r = max(2, int(s * 0.05))
+            img[int(py) - r:int(py) + r, int(px) - r:int(px) + r] = (60, 70,
+                                                                     90)
+    return img.clip(0, 255).astype(np.uint8)
+
+
+def trained_heads(torch, det, frames, tight=True):
+    """The detector's raw head outputs on the pipeline's canvas of
+    ``frames`` (f32, TF32 off), and the canvas's letterbox plan."""
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+
+    plan = det.plan(tuple(frames.shape[1:3]), tight=tight)
+    with torch.inference_mode(), full_f32(torch):
+        heads = det.model(ops.normalize_image(
+            ops.letterbox(frames, plan), ops.SCRFD_MEAN,
+            ops.SCRFD_STD).permute(0, 3, 1, 2).contiguous())
+    return heads, plan
+
+
+def conf_below_top(torch, heads, lo, hi):
+    """A score threshold between the ``lo``-th and ``hi``-th highest
+    anchor scores of the batch, at the middle of the widest gap there (a
+    barely trained detector scores near its prior everywhere, and a fixed
+    threshold would pass no face or every anchor)."""
+    s = torch.cat([x[..., 0].float().cpu() for x in heads["scores"]],
+                  dim=1).reshape(-1)
+    top = torch.sort(s, descending=True).values[:hi + 1].numpy()
+    gaps = top[lo - 1:hi] - top[lo:hi + 1]
+    r = int(np.argmax(gaps)) + lo
+    return float((top[r - 1] + top[r]) / 2), float(top[0]), float(top[hi])
+
+
+def sorted_corners(torch, o):
+    """A PipelineOutput with each box's corners sorted (x1 <= x2, y1 <=
+    y2): a barely trained detector predicts many boxes inside out, whose
+    IoU with their own twin would read 0 when the faces are paired."""
+    b = o.boxes
+    return o._replace(boxes=torch.cat([torch.minimum(b[..., :2], b[..., 2:]),
+                                       torch.maximum(b[..., :2], b[..., 2:])],
+                                      dim=-1))
+
+
+def phase_det_loop(torch, rep):
+    """19d: a labelled set (``det_label_file`` + ``det_image``) parsed and
+    batched, det_500m trained on it and checkpointed, AP with the same
+    loader, ``tools.train_scrfd --synthetic`` and ``tools.export_onnx
+    --verify`` in child processes, the exported file's preflight and
+    weights; then ``FacePipeline(det_onnx=)`` and ``FacePipeline(detector=
+    Detector(variables=checkpoint))`` with phase 11's w600k_r50 stand-in on
+    8 seeded 1080p frames at f32, faces held to the f32 budget, K1 counted
+    and held to its plain version."""
+    import shutil
+
+    from scrfd_arcface_facerecognition_tpu_torch import FacePipeline, ops
+    from scrfd_arcface_facerecognition_tpu_torch.models import (
+        load_inference_variables, preflight_graph)
+    from scrfd_arcface_facerecognition_tpu_torch.models.config_from_graph import (
+        variables_from_onnx)
+    from scrfd_arcface_facerecognition_tpu_torch.models.weights import _leaves
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.pipeline import Detector
+    from scrfd_arcface_facerecognition_tpu_torch.train import (
+        batches_from_annotations, evaluate_detector, parse_wider_annotations)
+
+    c = TRAIN_DET["loop"]
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase19")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    data = os.path.join(out_dir, "data")
+    os.makedirs(data)
+    label = os.path.join(data, "label.txt")
+    det_label_file(label, c["images"])
+    size = (c["size"], c["size"])
+    t0 = time.perf_counter()
+    anns = parse_wider_annotations(label)
+    n_faces = sum(len(a.boxes) for a in anns)
+    unlabeled = sum(int((~a.kps_valid).sum()) for a in anns)
+    if len(anns) != c["images"] or not 0 < unlabeled < n_faces:
+        fail(f"det loop: {len(anns)} images parsed, {n_faces} faces, "
+             f"{unlabeled} without landmarks")
+    trainer = det_trainer(torch, c["det"], c["size"], DEV,
+                          learning_rate=c["lr"])
+    state = trainer.init_state(0)
+    # one shuffled pass, letterboxed once (on the host, in numpy), then
+    # trained over ``passes`` times
+    batches = list(batches_from_annotations(
+        anns, c["batch"], size, c["max_gt"], image_loader=det_image))
+    t_data = time.perf_counter() - t0
+    losses = []
+    for _ in range(c["passes"]):
+        for images, boxes, kps, valid, kvalid in batches:
+            nchw = torch.from_numpy(np.ascontiguousarray(
+                images.transpose(0, 3, 1, 2)))
+            state, loss, _ = trainer.train_step(state, nchw, boxes, kps,
+                                                valid, kvalid)
+            losses.append(float(loss))
+    if not all(np.isfinite(losses)):
+        fail(f"det loop: a loss is not finite: {losses}")
+    ckpt_dir = os.path.join(out_dir, "ckpt")
+    os.makedirs(ckpt_dir)
+    ckpt = os.path.join(ckpt_dir, f"step_{state.step}.pt")
+    trainer.save_checkpoint(state, ckpt)
+    t_train = time.perf_counter() - t0
+    variables = load_inference_variables(ckpt)
+    det_eval = Detector(c["det"], variables=variables, input_size=size,
+                        device=DEV)
+    ap = evaluate_detector(det_eval, anns, image_loader=det_image)
+    if not (np.isfinite(ap["ap"]) and 0.0 <= ap["ap"] <= 1.0
+            and ap["images"] == c["images"]):
+        fail(f"det loop: AP {ap}")
+    rep.say(f"det data -> train: {c['images']} labelled images "
+            f"({n_faces} faces, {unlabeled} with unlabeled landmarks) "
+            f"through parse_wider_annotations and batches_from_annotations "
+            f"(an injected loader; no cv2; {len(batches)} batches "
+            f"letterboxed in {t_data:.1f} s), {c['det']} at "
+            f"{c['size']}x{c['size']}, batch {c['batch']}, {c['passes']} "
+            f"passes = {state.step} steps in {t_train:.1f} s, losses "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}; evaluate_detector AP@0.5 "
+            f"{ap['ap']:.4f} over {ap['images']} images (conf 0.02)")
+
+    t1 = time.perf_counter()
+    lines = run_cli(torch, "scrfd_arcface_facerecognition_tpu_torch.tools."
+                    "train_scrfd", [
+                        "--synthetic", str(c["cli_steps"]), "--variant",
+                        c["det"], "--batch", str(c["batch"]),
+                        "--input-size", str(c["size"]), "--device", DEV,
+                        "--out", os.path.join(out_dir, "cli")])
+    cli_ckpt = said_after(lines, "saved ")
+    if set(load_inference_variables(cli_ckpt)) != {"params", "batch_stats"}:
+        fail(f"tools.train_scrfd's checkpoint {cli_ckpt} holds no variables")
+    t_cli = time.perf_counter() - t1
+    onnx = os.path.join(out_dir, f"{c['det']}.onnx")
+    lines = run_cli(torch, "scrfd_arcface_facerecognition_tpu_torch.tools."
+                    "export_onnx", ["--variant", c["det"], "--checkpoint",
+                                    ckpt, "--out", onnx, "--verify",
+                                    "--device", DEV])
+    verify = float(said_after(lines, "worst relative |module - onnx| = "))
+    t_export = time.perf_counter() - t1 - t_cli
+    info = preflight_graph(onnx, "det")
+    want = dict(_leaves(variables))
+    cfg, tree = variables_from_onnx(onnx, name=c["det"])
+    got = dict(_leaves(tree))
+    if got.keys() != want.keys():
+        fail(f"the exported detector's tree has other leaves than the "
+             f"checkpoint's: {sorted(set(got) ^ set(want))[:5]}")
+    unequal = [k for k in want if not np.array_equal(got[k], want[k])]
+    if unequal:
+        fail(f"the exported detector's weights differ from the "
+             f"checkpoint's at {unequal[:5]}")
+    rep.say(f"det train -> export: tools.train_scrfd --synthetic "
+            f"{c['cli_steps']} --variant {c['det']} --batch {c['batch']} in "
+            f"{t_cli:.1f} s (child process, start-up included) -> "
+            f"{os.path.basename(cli_ckpt)}; tools.export_onnx --verify of "
+            f"the trained checkpoint in {t_export:.1f} s, worst relative "
+            f"|module - onnx| {verify:.2e}; preflight passes "
+            f"({info['family']}, {info['n_nodes']} nodes); "
+            f"variables_from_onnx reads back {len(want)} leaves bit-equal "
+            f"to load_inference_variables(checkpoint) ({cfg.name})")
+
+    s = STANDIN
+    rec = standin_onnx(torch, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build",
+        "standins"))["w600k_r50"]
+    rng = np.random.default_rng(193)
+    nb, (h, w) = c["frames"], c["hw"]
+    frames = synthetic_frames(torch, rng, nb, h, w)
+    native = Detector(c["det"], variables=variables, input_size=size,
+                      pre_nms=s["pre_nms"], max_det=s["max_det"],
+                      device=DEV)
+    heads, plan = trained_heads(torch, native, frames)
+    conf, top, floor = conf_below_top(torch, heads, *c["conf_ranks"])
+    native.conf_thres = conf
+    pipes = {"native": FacePipeline(detector=native, rec_onnx=rec,
+                                    gallery_capacity=s["gallery"],
+                                    device=DEV),
+             "onnx": FacePipeline(det_onnx=onnx, rec_onnx=rec,
+                                  conf_thres=conf, pre_nms=s["pre_nms"],
+                                  max_det=s["max_det"],
+                                  gallery_capacity=s["gallery"],
+                                  device=DEV)}
+    gallery = rng.normal(size=(s["gallery"], 512)).astype(np.float32)
+    for p in pipes.values():
+        p.set_gallery(gallery, [f"p{i}" for i in range(s["gallery"])])
+    with full_f32(torch):
+        for p in pipes.values():
+            p(frames)                                      # warm-up
+        torch.cuda.synchronize()
+        wa.launches = 0
+        with k1_capture() as calls:
+            # max_num 0: a barely trained detector's boxes come out near
+            # one size, so the max_num selection by area would tie
+            outs = {k: [p(frames) for _ in range(c["calls"])]
+                    for k, p in pipes.items()}
+            torch.cuda.synchronize()
+    launches = wa.launches
+    ref, out = (sorted_corners(torch, outs[k][-1]) for k in ("native",
+                                                            "onnx"))
+    full_slate = ref.valid.all(dim=1)
+    last = ref.scores[:, -1]
+    cuts = [(float(sc),) + ((float(last[f]),) if full_slate[f] else ())
+            for f, sc in enumerate(slate_cuts(torch, ops, heads,
+                                              s["pre_nms"]))]
+    share, npairs, lone = hold_f32_faces(
+        torch, ref, out, conf=conf, cuts=cuts, iou_thres=native.iou_thres,
+        sim=pipes["native"].similarity_thresh,
+        where="det train -> serve, the exported file vs the checkpoint")
+    faces = int(out.valid.sum())
+    if launches == 0 or faces == 0:
+        fail(f"det train -> serve: K1 warped no crop ({launches} launches, "
+             f"{faces} faces)")
+    err, summary = k1_on_path(torch, wa, calls)
+    if err > TOL_U8:
+        fail(f"det train -> serve: K1 vs plain {err} u8 on the path's "
+             f"inputs")
+    rep.say(f"det train -> serve: the trained {c['det']} on {nb} seeded "
+            f"{h}x{w} frames at f32 (TF32 off), max_num 0, conf {conf:.6f} "
+            f"(its top "
+            f"anchor score {top:.6f}, the {c['conf_ranks'][1]}th "
+            f"{floor:.6f}), with phase 11's w600k_r50 stand-in: "
+            f"FacePipeline(det_onnx=exported) {faces} faces, "
+            f"FacePipeline(detector=Detector(variables=checkpoint)) "
+            f"{int(ref.valid.sum())}; paired by IoU >= 0.9 {npairs}, on one "
+            f"side only (ties) {lone}; shares of the f32 budget: boxes / kps "
+            f"{share['px']:.4f}, scores {share['score']:.4f}, 1 - cosine "
+            f"{share['cos']:.4f}, match_sim {share['sim']:.4f}; K1 launches "
+            f"{launches} over {c['calls']} calls of each; K1 vs plain on "
+            f"{summary}: {err:.6g} u8")
+    return dict(launches=launches, err=err, ap=ap["ap"], faces=faces,
+                share=share, verify=verify)
+
+
+def phase_det_train(torch, rep):
+    """19: (a) card vs CPU with TF32 off, (b) det_10g at the CLI's
+    defaults, (c) it learns, (d) data -> train -> checkpoint -> AP ->
+    export -> serve."""
+    t0 = time.perf_counter()
+    with full_f32(torch):
+        cmp = phase_det_card_vs_cpu(torch, rep)
+    t1 = time.perf_counter()
+    full = phase_det_full(torch, rep)
+    learn = phase_det_learns(torch, rep)
+    t2 = time.perf_counter()
+    loop = phase_det_loop(torch, rep)
+    rep.say(f"phase 19 took {time.perf_counter() - t0:.1f} s: (a) "
+            f"{t1 - t0:.1f}, (b)-(c) {t2 - t1:.1f}, (d) "
+            f"{time.perf_counter() - t2:.1f}")
+    return dict(cmp=cmp, full=full, learn=learn, **loop)
+
+
 def main():
     import torch
 
@@ -4495,17 +5081,21 @@ def main():
     # 18. train, checkpoint, export, serve
     tr = phase_train(torch, rep)
 
-    # 19. kernels
+    # 19. the detector: train, checkpoint, AP, export, serve
+    dt = phase_det_train(torch, rep)
+
+    # 20. kernels
     t2 = gal["times"]
     kernels = [{
         "name": wa.NAME, "route": "cuda",
         "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/warp_align.cu",
         "replaces": "scrfd_arcface_facerecognition_tpu/ops/pallas_warp.py:430",
         "launches": launches + bf["launches"] + rt["launches"]
-        + ox["launches"] + cam["launches"] + web["k1"] + tr["launches"],
+        + ox["launches"] + cam["launches"] + web["k1"] + tr["launches"]
+        + dt["launches"],
         "max_abs_err": max(err3, err4, sp["err1"], fa["err"], eng["err"],
                            bf["err"], rt["err"], ox["err"], cam["err"],
-                           web["err1"], tr["err"]),
+                           web["err1"], tr["err"], dt["err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     }, {

@@ -12,8 +12,8 @@ from .scrfd import (SCRFDConfig, SCRFDNet, SCRFD_CONFIGS, build_scrfd,
                     s2d_kernel_to_stem)
 from .init_utils import seeded_init_
 from .weights import (load_flax_variables, read_flax_msgpack,
-                      state_dict_from_flax, train_state_from_jax,
-                      variables_from_module)
+                      scrfd_train_state_from_jax, state_dict_from_flax,
+                      train_state_from_jax, variables_from_module)
 from .checkpoints import load_inference_variables
 from .onnx_export import export_arcface, export_model, export_scrfd
 from .onnx_exec import SUPPORTED_OPS, OnnxModel, UnsupportedOp, onnx_model
@@ -28,7 +28,8 @@ __all__ = [
     "SCRFDConfig", "SCRFDNet", "SCRFD_CONFIGS", "build_scrfd",
     "s2d_kernel_to_stem",
     "seeded_init_", "load_flax_variables", "read_flax_msgpack",
-    "state_dict_from_flax", "train_state_from_jax", "variables_from_module",
+    "state_dict_from_flax", "train_state_from_jax",
+    "scrfd_train_state_from_jax", "variables_from_module",
     "load_inference_variables", "export_arcface", "export_model",
     "export_scrfd",
     "SUPPORTED_OPS", "OnnxModel", "UnsupportedOp", "onnx_model",

@@ -1,11 +1,12 @@
 """Load trained checkpoints into the inference stack (train -> serve).
 
-The port's trainer writes its checkpoints with ``torch.save``: a dict of
-tensors, not the orbax directories of the JAX package.
+The port's trainers write their checkpoints with ``torch.save``: a dict
+of tensors, not the orbax directories of the JAX package.
 ``ArcFaceTrainer.save_checkpoint`` saves the whole train state
 (``{"backbone": variables, "head_w", "trace", "step"}``, the variables in
-Flax layout); a raw ``{"params", "batch_stats"}`` dict of tensors loads
-too. This helper turns either into the ``variables`` the inference
+Flax layout); ``SCRFDTrainer.save_checkpoint`` saves the detector's raw
+``{"params", "batch_stats"}`` dict of tensors, as the JAX tool saves the
+variables alone. This helper turns either into the ``variables`` the inference
 wrappers take:
 
     emb = Embedder(config=cfg, variables=load_inference_variables(path))
@@ -25,6 +26,14 @@ def numpy_tree(tree: Mapping) -> Dict[str, Any]:
     """A nested dict of tensors -> the same dict of numpy f32 arrays."""
     return {k: (numpy_tree(v) if isinstance(v, Mapping)
                 else np.asarray(v.detach().cpu(), np.float32))
+            for k, v in tree.items()}
+
+
+def tensor_tree(tree: Mapping) -> Dict[str, Any]:
+    """A nested dict of numpy arrays -> the same dict of tensors (the form a
+    checkpoint file holds; the inverse of ``numpy_tree``)."""
+    return {k: (tensor_tree(v) if isinstance(v, Mapping)
+                else torch.from_numpy(np.ascontiguousarray(v)))
             for k, v in tree.items()}
 
 

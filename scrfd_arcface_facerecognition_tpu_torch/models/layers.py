@@ -126,11 +126,12 @@ def remat_call(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm in float32 (statistics and affine), the result in the
-    input's dtype: mixed-dtype group_norm is not on every backend."""
+    """GroupNorm in float32 (statistics and affine; float64 for a float64
+    input), the result in the input's dtype: mixed-dtype group_norm is not
+    on every backend."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float()).to(x.dtype)
+        return super().forward(at_least_f32(x)).to(x.dtype)
 
 
 class PReLU(RoundedWeights, nn.Module):

@@ -28,7 +28,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from .layers import (Conv2d, ConvBN, GroupNorm, RoundedWeights,
-                     set_compute_dtype)
+                     at_least_f32, set_compute_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,7 +191,8 @@ def _flatten_nhwc(x: torch.Tensor, c: int) -> torch.Tensor:
 class SCRFDHead(RoundedWeights, nn.Module):
     """Anchor-free head shared across levels: a GroupNorm conv tower, then
     cls / bbox / kps 3x3 convs, a learnable scale per level on the bbox
-    (multiplied in the compute dtype). The outputs are float32."""
+    (multiplied in the compute dtype). The outputs are float32 (float64
+    in a trainer's check in double)."""
 
     def __init__(self, cfg: SCRFDConfig, in_ch: int):
         super().__init__()
@@ -220,9 +221,10 @@ class SCRFDHead(RoundedWeights, nn.Module):
             for i in range(self.n_tower):
                 t = getattr(self, f"tower{i}")(t)
             scale = self.w(f"scale{li}")
-            scores.append(_flatten_nhwc(torch.sigmoid(self.cls(t)), 1).float())
-            bboxes.append(_flatten_nhwc(self.box(t) * scale, 4).float())
-            kpss.append(_flatten_nhwc(self.kps(t), nk).float())
+            scores.append(at_least_f32(_flatten_nhwc(
+                torch.sigmoid(self.cls(t)), 1)))
+            bboxes.append(at_least_f32(_flatten_nhwc(self.box(t) * scale, 4)))
+            kpss.append(at_least_f32(_flatten_nhwc(self.kps(t), nk)))
         return {"scores": scores, "bboxes": bboxes, "kps": kpss}
 
 

@@ -19,7 +19,8 @@ tree (the ONNX importer's template and the exporter's input).
 ``read_flax_msgpack`` reads a checkpoint that
 ``flax.serialization.msgpack_serialize`` wrote. ``train_state_from_jax``
 carries a JAX ``ArcFaceTrainer`` state (weights, class matrix, momentum,
-step) to the port's trainer. This module reads numpy only; it needs
+step) to the port's trainer, ``scrfd_train_state_from_jax`` a JAX
+``SCRFDTrainer`` state (weights, momentum, step). This module reads numpy only; it needs
 neither JAX nor Flax.
 """
 from __future__ import annotations
@@ -262,3 +263,17 @@ def train_state_from_jax(state: Any) -> Dict[str, Any]:
     if trace is None:
         raise ValueError("the state's opt_state holds no momentum trace")
     return train_state_parts(state.backbone, state.head_w, trace, state.step)
+
+
+def scrfd_train_state_from_jax(state: Any) -> Dict[str, Any]:
+    """The JAX package's ``SCRFDTrainState`` with numpy leaves
+    (``jax.tree.map(np.asarray, state)``) -> the port ``SCRFDTrainer``'s
+    parts: ``{"model": the detector's state dict, "trace": {parameter name:
+    tensor}, "step": int}``; the variables through ``state_dict_from_flax``,
+    optax's SGD momentum trace with the weights' transposes."""
+    trace = _trace_tree(state.opt_state)
+    if trace is None:
+        raise ValueError("the state's opt_state holds no momentum trace")
+    return {"model": state_dict_from_flax(state.variables),
+            "trace": state_dict_from_flax({"params": trace}),
+            "step": int(np.asarray(state.step))}

@@ -9,11 +9,12 @@ theta_y + m > pi. Partial FC (arXiv:2010.05222) runs each step's softmax
 over the batch's positives and a sampled subset of the other classes.
 
 The update is optax's ``chain(clip_by_global_norm(5), add_decayed_weights
-(wd), sgd(lr, momentum=0.9))``, written out: the global norm over every
-trained tensor (backbone and class matrix), decay on every tensor, the
-trace ``g + 0.9 * trace``, the learning rate read at the step before the
-increment. Autograd through cuDNN and cuBLAS stands where the JAX package
-has ``jax.value_and_grad``; the margin logits are plain matmuls there and
+(wd), sgd(lr, momentum=0.9))``, written out once for both trainers
+(``state.sgd_update_``): the global norm over every trained tensor
+(backbone and class matrix), decay on every tensor, the trace ``g + 0.9 *
+trace``, the learning rate read at the step before the increment.
+Autograd through cuDNN and cuBLAS stands where the JAX package has
+``jax.value_and_grad``; the margin logits are plain matmuls there and
 here, so training adds no hand-written kernel.
 
 Checkpoints are ``torch.save`` files of tensors (not orbax directories):
@@ -33,16 +34,14 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..models.checkpoints import read_checkpoint
+from ..models.checkpoints import read_checkpoint, tensor_tree
 from ..models.init_utils import seeded_init_
-from ..models.layers import RoundedWeights, at_least_f32, set_compute_dtype
+from ..models.layers import at_least_f32
 from ..models.weights import (train_state_parts, variables_from_module,
                               variables_from_state_dict)
 from ..ops.nms import stable_top_k
 from ..ops.similarity import l2_normalize
-
-MAX_GRAD_NORM = 5.0
-MOMENTUM = 0.9
+from .state import check_trainable, module_from, placed_module, sgd_update_
 
 
 def arcface_margin_logits(embeddings: torch.Tensor, w: torch.Tensor,
@@ -118,43 +117,6 @@ class TrainState(NamedTuple):
     step: int
 
 
-def state_parts(state: TrainState) -> Dict[str, Any]:
-    """A state's parts, copied to the CPU (what ``state_from`` takes): a
-    state moves to another device or trainer through them."""
-    return {"backbone": {k: v.detach().cpu().clone() for k, v in
-                         state.backbone.state_dict().items()},
-            "head_w": state.head_w.detach().cpu().clone(),
-            "trace": {k: v.cpu().clone() for k, v in state.trace.items()},
-            "step": state.step}
-
-
-def state_tensors(parts: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A state's tensors by name (from ``state_parts``): ``backbone.<key>``
-    (the weights and the BN statistics), ``head_w``, ``trace.<name>`` (the
-    momentum)."""
-    out = {f"backbone.{k}": v for k, v in parts["backbone"].items()
-           if not k.endswith("num_batches_tracked")}
-    out["head_w"] = parts["head_w"]
-    out.update((f"trace.{k}", v) for k, v in parts["trace"].items())
-    return out
-
-
-def state_gaps(got: Mapping[str, Any], want: Mapping[str, Any],
-               atol: float, rtol: float) -> Dict[str, float]:
-    """How far two states' parts lie apart: for each tensor, the largest
-    ``|got - want|`` as a share of ``atol + rtol * max |want|`` (each
-    tensor within its bound when every share is at most 1)."""
-    got, want = state_tensors(got), state_tensors(want)
-    if sorted(got) != sorted(want):
-        raise ValueError("the two states do not hold the same tensors")
-    out = {}
-    for name, w in want.items():
-        w = w.detach().double()
-        d = float((got[name].detach().double() - w).abs().max())
-        out[name] = d / (atol + rtol * float(w.abs().max()))
-    return out
-
-
 def _trained(state: TrainState):
     """(names, tensors) the optimizer updates, in a fixed order."""
     named = list(state.backbone.named_parameters())
@@ -199,16 +161,7 @@ class ArcFaceTrainer:
         from .schedules import make_lr_schedule
 
         self.device = resolve_device(self.device)
-        for m in self.model.modules():
-            if isinstance(m, RoundedWeights) and \
-                    m.compute_dtype != torch.float32:
-                raise ValueError(
-                    "the trainer trains at float32 compute, as the JAX "
-                    f"trainer does; this model computes in {m.compute_dtype}"
-                    " (round a trained module for serving with "
-                    "set_compute_dtype)")
-        if self.dtype not in (torch.float32, torch.float64):
-            raise ValueError(f"dtype {self.dtype}: float32 or float64")
+        check_trainable(self.model, self.dtype)
         lr = make_lr_schedule(self.learning_rate, self.warmup_steps,
                               self.decay_steps, self.lr_decay)
         self.lr = lr if callable(lr) else (lambda step: lr)
@@ -240,12 +193,7 @@ class ArcFaceTrainer:
         """A state from its parts (``weights.train_state_parts`` /
         ``train_state_from_jax``: a backbone state dict, ``head_w``, the
         momentum by name, the step)."""
-        backbone = copy.deepcopy(self.model).to(self.dtype)
-        sd = dict(parts["backbone"])
-        for key, value in backbone.state_dict().items():
-            if key.endswith("num_batches_tracked") and key not in sd:
-                sd[key] = value
-        backbone.load_state_dict(sd, strict=True)
+        backbone = module_from(self.model, parts["backbone"], self.dtype)
         names = [n for n, _ in backbone.named_parameters()] + ["head_w"]
         if sorted(parts["trace"]) != sorted(names):
             raise ValueError("the momentum does not name the model's "
@@ -263,10 +211,8 @@ class ArcFaceTrainer:
         def own(t):
             return t.detach().to(self.device, self.dtype, copy=True)
 
-        backbone = set_compute_dtype(backbone.to(self.device, self.dtype),
-                                     self.dtype)
-        backbone = backbone.train().requires_grad_(True)
-        return TrainState(backbone=backbone,
+        return TrainState(backbone=placed_module(backbone, self.device,
+                                                 self.dtype),
                           head_w=own(head_w).requires_grad_(True),
                           trace={k: own(v) for k, v in trace.items()},
                           step=step)
@@ -298,21 +244,6 @@ class ArcFaceTrainer:
                                        self.scale, self.margin)
         return softmax_xent(logits, labels).mean()
 
-    @torch.no_grad()
-    def _update(self, params, grads, traces, lr: float) -> None:
-        """optax's chain on the tensors in place: clip by the global norm,
-        add decayed weights, momentum trace, ``p - lr * trace``."""
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
-        self.last_grad_norm = norm
-        factor = torch.where(norm < MAX_GRAD_NORM, torch.ones_like(norm),
-                             MAX_GRAD_NORM / norm)
-        torch._foreach_mul_(grads, factor)
-        torch._foreach_add_(grads, params, alpha=self.weight_decay)
-        torch._foreach_mul_(traces, MOMENTUM)
-        torch._foreach_add_(traces, grads)
-        torch._foreach_add_(params, traces, alpha=-lr)
-
     def train_step(self, state: TrainState, images: torch.Tensor,
                    labels: torch.Tensor,
                    scores: Optional[torch.Tensor] = None
@@ -326,8 +257,9 @@ class ArcFaceTrainer:
         with torch.enable_grad():
             loss = self.loss(state, images, labels, scores)
             grads = list(torch.autograd.grad(loss, params))
-        self._update(params, grads, [state.trace[n] for n in names],
-                     self.lr(state.step))
+        self.last_grad_norm = sgd_update_(
+            params, grads, [state.trace[n] for n in names],
+            self.lr(state.step), self.weight_decay)
         return state._replace(step=state.step + 1), loss.detach()
 
     # ------------------------------------------------------- checkpointing
@@ -336,17 +268,13 @@ class ArcFaceTrainer:
         """``torch.save`` of the whole state as float32 tensors: the
         backbone's Flax-layout variables, ``head_w``, the momentum in the
         same layout, the step."""
-        def tensors(tree):
-            return {k: tensors(v) if isinstance(v, Mapping)
-                    else torch.from_numpy(v) for k, v in tree.items()}
-
         momentum = {n: t for n, t in state.trace.items() if n != "head_w"}
         data = {
-            "backbone": tensors(variables_from_module(state.backbone)),
+            "backbone": tensor_tree(variables_from_module(state.backbone)),
             "head_w": state.head_w.detach().to("cpu", torch.float32,
                                                copy=True),
             "trace": {
-                "backbone": tensors(
+                "backbone": tensor_tree(
                     variables_from_state_dict(momentum)["params"]),
                 "head_w": state.trace["head_w"].to("cpu", torch.float32,
                                                    copy=True)},

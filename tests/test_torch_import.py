@@ -32,7 +32,9 @@ def test_import_leaves_no_jax_in_sys_modules():
         "       'apps.webui', 'apps.webapp', 'models.onnx_write',\n"
         "       'models.onnx_export', 'models.checkpoints', 'train',\n"
         "       'train.schedules', 'train.arcface_train',\n"
-        "       'tools.train_arcface', 'tools.export_onnx')\n"
+        "       'tools.train_arcface', 'tools.export_onnx',\n"
+        "       'train.state', 'train.scrfd_train', 'train.detection_data',\n"
+        "       'utils.profiling', 'tools.train_scrfd')\n"
         "bad += [m for m in new if p.__name__ + '.' + m not in sys.modules]\n"
         "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
@@ -78,7 +80,10 @@ def test_no_module_of_the_port_imports_jax_flax_or_the_jax_package():
                 "models/onnx_write.py", "models/onnx_export.py",
                 "models/checkpoints.py", "train/__init__.py",
                 "train/schedules.py", "train/arcface_train.py",
-                "tools/train_arcface.py", "tools/export_onnx.py"):
+                "tools/train_arcface.py", "tools/export_onnx.py",
+                "train/state.py", "train/scrfd_train.py",
+                "train/detection_data.py", "utils/profiling.py",
+                "tools/train_scrfd.py"):
         assert mod in names, mod
     for path in files:
         bad = set(_imported_roots(path)) & set(_FORBIDDEN)
@@ -114,7 +119,8 @@ def test_no_module_of_the_port_imports_cv2_at_module_level():
     # reader / writer / display keep their cv2 inside functions
     for mod in (("apps", "clustering.py"), ("runtime", "video.py"),
                 ("utils", "drawing.py"), ("apps", "realtime.py"),
-                ("apps", "dualstream.py"), ("apps", "webapp.py")):
+                ("apps", "dualstream.py"), ("apps", "webapp.py"),
+                ("train", "detection_data.py")):
         src = os.path.join(_PKG, *mod)
         assert "cv2" in set(_imported_roots(src)), mod
         assert "cv2" not in _module_level_roots(src), mod
@@ -190,9 +196,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                     "--source", "missing.mp4"])
     from scrfd_arcface_facerecognition_tpu_torch.models import (
         build_arcface, onnx_model)
-    from scrfd_arcface_facerecognition_tpu_torch.train import ArcFaceTrainer
+    from scrfd_arcface_facerecognition_tpu_torch.models.scrfd import (
+        build_scrfd)
+    from scrfd_arcface_facerecognition_tpu_torch.train import (
+        ArcFaceTrainer, SCRFDTrainer)
     from scrfd_arcface_facerecognition_tpu_torch.tools import (
-        export_onnx, train_arcface)
+        export_onnx, train_arcface, train_scrfd)
 
     for make in (FacePipeline, Detector, Embedder, FaceAnalysis,
                  lambda: Detector(onnx_path="det_500m.onnx"),
@@ -215,6 +224,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: ArcFaceTrainer(model=build_arcface("w600k_mbf"),
                                         num_classes=4),
                  lambda: train_arcface.main(["--synthetic", "1"]),
+                 lambda: SCRFDTrainer(model=build_scrfd("det_500m")),
+                 lambda: train_scrfd.main(["--synthetic", "1"]),
                  lambda: export_onnx.main(["--variant", "w600k_mbf",
                                            "--out", os.devnull])):
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1090,3 +1090,164 @@ def test_train_phase_fails_on_learned_random_labels(monkeypatch, tmp_path):
     monkeypatch.setattr(TT.ArcFaceTrainer, "train_step", learned)
     with pytest.raises(RuntimeError, match=r"below ln\(100\) / 2"):
         chip_smoke.phase_train_full(torch, rep)
+
+
+# ------------------------------------------------------ phase 19, rehearsed
+
+
+def _det_phase_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 19 at small sizes on the CPU: a tiny SCRFD in place of
+    det_500m and det_10g (128 x 128 for (a)-(c); (d) at the 640 x 640 that
+    ``FacePipeline(det_onnx=)`` letterboxes to), the CLIs run in this
+    process, a small exported iResNet stand-in (512 wide) in place of
+    phase 11's w600k_r50 file; K1 counted where the wrapper would count
+    it."""
+    import contextlib
+    import dataclasses
+    import importlib
+    import io
+
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+    from scrfd_arcface_facerecognition_tpu_torch.models import scrfd as TS
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from torch_export import TorchIResNet, export_onnx, seeded
+
+    class Event(_Event):
+        def elapsed_time(self, other):
+            return 1.0
+
+    rep, said = _no_card(monkeypatch, wa)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    for name in ("empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    tiny = TS.SCRFDConfig("det_500m", 8, (1, 1, 1, 1), (8, 8, 16, 16),
+                          neck_filters=8, head_stacks=1, head_filters=16)
+    monkeypatch.setitem(TS.SCRFD_CONFIGS, "det_500m", tiny)
+    monkeypatch.setitem(TS.SCRFD_CONFIGS, "det_10g",
+                        dataclasses.replace(tiny, name="det_10g"))
+    monkeypatch.setattr(chip_smoke, "TRAIN_DET", dict(
+        cmp=dict(det="det_500m", size=128, batch=2, max_gt=3, steps=2),
+        full=dict(det="det_10g", size=128, batch=2, max_gt=4, warm=1,
+                  timed=1),
+        learn=dict(det="det_500m", size=128, batch=2, max_gt=3, steps=8,
+                   lr=0.01),
+        loop=dict(det="det_500m", size=640, images=6, batch=4, max_gt=4,
+                  passes=2, lr=0.01, cli_steps=1, frames=2, hw=(120, 160),
+                  calls=1, conf_ranks=(2, 8))))
+    monkeypatch.setattr(chip_smoke, "STANDIN", dict(
+        frames=2, hw=(120, 160), max_num=3, gallery=4, conf=0.5, pre_nms=32,
+        max_det=4))
+    rec = str(tmp_path / "rec.onnx")
+    export_onnx(seeded(TorchIResNet(blocks=(1, 1, 1, 1),
+                                    planes=(8, 8, 16, 16)), 0),
+                torch.randn(1, 3, 112, 112), rec)
+    monkeypatch.setattr(chip_smoke, "standin_onnx",
+                        lambda torch_, b: {"w600k_r50": rec})
+
+    def in_process(torch_, module, args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            importlib.import_module(module).main(list(args))
+        return buf.getvalue().splitlines()
+
+    monkeypatch.setattr(chip_smoke, "run_cli", in_process)
+    crops = ops.warp_align_crops
+
+    def counted(*a, **k):
+        wa.launches += 1
+        return crops(*a, **k)
+
+    monkeypatch.setattr(ops, "warp_align_crops", counted)
+    return rep, said
+
+
+def test_det_train_phase_rehearsed_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 19: card (here the CPU) against the CPU within the stated
+    tolerances, the assignment equal; the det_10g step timed; one batch
+    memorized; the labelled set through the data path, training, AP, the
+    CLIs, the export read back bit-equal and both pipelines' faces held to
+    the f32 budget with K1 counted and held; TF32's settings left as they
+    were."""
+    monkeypatch.chdir(tmp_path)
+    before = _tf32()
+    rep, said = _det_phase_on_the_cpu(monkeypatch, tmp_path)
+    out = chip_smoke.phase_det_train(torch, rep)
+    assert _tf32() == before
+    assert out["launches"] > 0 and out["err"] == 0.0 and out["faces"] > 0
+    cmp = out["cmp"]                              # the CPU against itself
+    assert cmp["loss32"][0] == cmp["loss32"][1] and cmp["rel64"] == 0.0
+    assert cmp["worst"] == 0.0 and min(cmp["n_pos"]) > 0
+    for gaps in cmp["gaps"]:
+        assert set(gaps) == {"weights", "BN statistics", "momentum"}
+    assert out["full"]["busy"] is None and out["full"]["spans"] is None
+    assert min(out["full"]["n_pos"]) > 0
+    assert out["learn"][-1] < out["learn"][0]
+    assert 0.0 <= out["ap"] <= 1.0
+    assert all(v <= 1 for v in out["share"].values())
+    text = "\n".join(said)
+    for start in ("det train card vs CPU (det_500m full width, 128x128",
+                  "ATSS assignment equal on both devices",
+                  "det train det_10g full width", "one fixed batch of 2",
+                  "det data -> train: 6 labelled images",
+                  "evaluate_detector AP@0.5", "det train -> export:",
+                  "bit-equal to load_inference_variables(checkpoint)",
+                  "det train -> serve: the trained det_500m",
+                  "phase 19 took"):
+        assert start in text, start
+
+
+def test_det_phase_fails_when_k1_warps_no_crop(monkeypatch, tmp_path):
+    """A threshold above every anchor's score leaves K1 nothing to warp:
+    phase 19d fails."""
+    monkeypatch.chdir(tmp_path)
+    rep, _ = _det_phase_on_the_cpu(monkeypatch, tmp_path)
+    monkeypatch.setattr(chip_smoke, "conf_below_top",
+                        lambda torch_, heads, lo, hi: (1.5, 1.0, 1.0))
+    with pytest.raises(RuntimeError, match="paired|no crop"):
+        chip_smoke.phase_det_loop(torch, rep)
+
+
+def test_det_labels_parse_back_with_unlabeled_landmarks(tmp_path):
+    """Phase 19d's label file and loader: every image parses back with its
+    faces, the odd faces' landmarks unlabeled, and the loader draws the
+    image at the size its labels were made for."""
+    from scrfd_arcface_facerecognition_tpu_torch.train import (
+        parse_wider_annotations)
+
+    path = str(tmp_path / "label.txt")
+    chip_smoke.det_label_file(path, 5)
+    anns = parse_wider_annotations(path)
+    assert len(anns) == 5
+    for i, a in enumerate(anns):
+        (h, w), faces = chip_smoke.det_faces(i)
+        assert len(a.boxes) == len(faces)
+        assert a.kps_valid.tolist() == [j % 2 == 0 for j in range(len(faces))]
+        img = chip_smoke.det_image(a.path)
+        assert img.shape == (h, w, 3) and img.dtype == np.uint8
+        np.testing.assert_allclose(a.boxes[0, :2], faces[0][0][:2],
+                                   atol=0.01)
+
+
+def test_det_phase_settings_match_the_clis_defaults_at_full_width():
+    """Phase 19's settings: (b) times det_10g (the main path's detector)
+    at ``tools.train_scrfd``'s own defaults; (a), (c) and (d) train
+    det_500m at its full width on 640 x 640 canvases; (d) serves 8 1080p
+    frames, the threshold between ranked anchor scores."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import train_scrfd
+
+    d = train_scrfd.parse_args(["--synthetic", "1"])
+    c = chip_smoke.TRAIN_DET
+    full = c["full"]
+    assert (full["det"], full["size"], full["batch"], full["max_gt"]) == (
+        chip_smoke.MAIN["det"], d.input_size, d.batch, d.max_gt)
+    assert (full["warm"], full["timed"]) == (3, 10)
+    assert (c["cmp"]["det"], c["cmp"]["size"], c["cmp"]["batch"],
+            c["cmp"]["max_gt"], c["cmp"]["steps"]) == ("det_500m", 640, 4,
+                                                       8, 3)
+    assert (c["learn"]["batch"], c["learn"]["steps"]) == (4, 30)
+    loop = c["loop"]
+    assert (loop["images"], loop["frames"], loop["hw"]) == (16, 8,
+                                                            (1080, 1920))
+    lo, hi = loop["conf_ranks"]
+    assert 0 < lo < hi
