@@ -255,9 +255,28 @@ non-zero exit if it fails:
    frames at f32 (TF32 off), the threshold set below the trained
    detector's top anchor scores: faces held to the f32 budget, K1 counted
    (the phase fails if it warped no crop) and held to its plain version;
-20. one JSON line of every kernel's numbers (K1's launches are those of
-   phases 4, 13, 14, 15, 16, 17, 18 and 19; K2's those of phases 7 and
-   17).
+20. multi-device serving (``PAR``) over a mesh of the CUDA cards when
+   there are two or more, else of 4 slots that share cuda:0 (its times
+   are then labelled no scaling figure): (a) a ShardedGallery of
+   1,000,000 x 512 f32 rows over the shards, Q = 80, k = 5, against the
+   single-device top-k (ids equal, scores within 1e-5); (b) phase 7's
+   codec and rows in a 2,000,000-row PQGallery(mesh=): K2 launched once a
+   shard a search, in "hilo" and with rerank 32 in "hi", ids and scores
+   bit-equal to phase 7's unsharded gallery, K2 held to its plain version
+   on a shard; AutoGallery(tier="pq", mesh=) through a migration and
+   snapshots restored unmeshed and back onto the mesh, the same hits; (c)
+   frame DP with phase 4's det_10g + w600k_r50, gallery 128, 8 x 1080p,
+   max_num 10, split over the slots, against one unsharded call at f32
+   with TF32 off (valid, count, match_idx equal; boxes and kps within
+   1e-2 px, scores, match_sim and embeddings within 1e-4), K1 counted and
+   held to its plain version; (d) DisaggPipeline over half the slots
+   each way, the gallery sharded and "auto", process_stream(depth=2) of
+   4 batches of 8 frames held as in (c), K1 counted; on one card
+   ``realtime --disagg 1`` raises "needs at least 2 devices"; (e) every
+   per-call time beside the single-device one;
+21. one JSON line of every kernel's numbers (K1's launches are those of
+   phases 4, 13, 14, 15, 16, 17, 18, 19 and 20; K2's those of phases 7,
+   17 and 20).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside it, the script exits non-zero and prints no
@@ -380,6 +399,15 @@ TOL_TRAIN = dict(loss=1e-5, loss64=1e-11, double=(1e-12, 1e-10),
 # through the data path (one shuffled pass, trained over ``passes`` times),
 # training, AP, export and the pipeline (conf between the conf_ranks-th
 # highest anchor scores of the frames)
+# phase 20: multi-device serving: slots when the machine has one card;
+# (a) the dense sharded gallery (rows, queries, k); (b) the sharded PQ
+# gallery's capacity (phase 7's codec and rows), k and the AutoGallery's
+# rows to migrate at; (c) frame DP at phase 4's width; (d) disaggregation's
+# batches
+PAR = dict(slots=4, dense=(1_000_000, 80, 5), pq_capacity=2_000_000, k=5,
+           auto_min_rows=4096,
+           dp=dict(frames=8, hw=(1080, 1920), max_num=10, gallery=128),
+           disagg=dict(batches=4))
 TRAIN_DET = dict(
     cmp=dict(det="det_500m", size=640, batch=4, max_gt=8, steps=3),
     full=dict(det="det_10g", size=640, batch=32, max_gt=32, warm=3,
@@ -1000,13 +1028,19 @@ def identity_rows(rng, n, idents, dim, sigma, chunk=100_000):
     return rows, ident, centers
 
 
+def sync_all(torch):
+    """Wait for every card (phase 20's slots may span several)."""
+    for d in range(max(1, torch.cuda.device_count())):
+        torch.cuda.synchronize(d)
+
+
 def median_ms(torch, fn, n=5):
     out, times = None, []
     for _ in range(n):
-        torch.cuda.synchronize()
+        sync_all(torch)
         t = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
+        sync_all(torch)
         times.append((time.perf_counter() - t) * 1e3)
     return sorted(times)[n // 2], times, out
 
@@ -1169,7 +1203,8 @@ def phase_gallery_path(torch, rep, main_emb):
     n_cpu = GAL_CPU_ROWS
     return dict(codec=ag._pq.codec, rows=rows[:n_cpu], ids=ids[:n_cpu],
                 queries=np.concatenate([main_q, views[:48]]),
-                launches=launches, err=max(errs), times=times["hi"])
+                launches=launches, err=max(errs), times=times["hi"],
+                pq=ag._pq)
 
 
 def phase_gallery_card_vs_cpu(torch, rep, codec, mat, ids, queries):
@@ -4994,6 +5029,344 @@ def phase_det_train(torch, rep):
     return dict(cmp=cmp, full=full, learn=learn, **loop)
 
 
+# ---------------------------------------------------------------------
+# phase 20: multi-device serving
+#
+# One process drives every slot of a mesh (parallel/). With two or more
+# cards the slots are the cards; with one, four slots share cuda:0, so the
+# sharded paths run and are checked but their times are no scaling figure.
+
+
+def parallel_slots(torch):
+    """(slots, label): the CUDA cards (a power of two of them, at most 8)
+    when there are two or more, else PAR["slots"] slots of one card."""
+    from scrfd_arcface_facerecognition_tpu_torch import parallel
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        use = 1 << (min(n, 8).bit_length() - 1)
+        return (parallel.card_slots()[:use],
+                f"{use} cards, one slot each")
+    return (parallel.device_slots(DEV, PAR["slots"]),
+            f"{PAR['slots']} slots on one card — not a scaling figure")
+
+
+def hold_sharded(torch, got, want, what):
+    """A sharded call against the unsharded one at f32 with TF32 off:
+    valid, count and match_idx equal; boxes and kps within 1e-2 frame px,
+    scores and match_sim within 1e-4 (phase 5's budget); embeddings within
+    1e-4 (the JAX package's own DP test's bound). -> the largest gaps."""
+    g = [t.cpu() for t in got]
+    w = [t.cpu() for t in want]
+    names = got._fields
+    for name in ("valid", "count", "match_idx"):
+        i = names.index(name)
+        if not torch.equal(g[i], w[i]):
+            fail(f"{what}: {name} differs from the unsharded call")
+    gaps = {name: float((g[names.index(name)].float()
+                         - w[names.index(name)].float()).abs().max())
+            if g[names.index(name)].numel() else 0.0
+            for name in ("boxes", "kps", "scores", "match_sim",
+                         "embeddings")}
+    budget = dict(boxes=1e-2, kps=1e-2, scores=1e-4, match_sim=1e-4,
+                  embeddings=1e-4)
+    over = {k: v for k, v in gaps.items() if not v <= budget[k]}
+    if over:
+        fail(f"{what}: out of tolerance against the unsharded call: {over}")
+    return gaps
+
+
+def phase_dense_sharded(torch, rep, slots, label):
+    """20a: a dense ShardedGallery of PAR["dense"] rows against the
+    single-device cosine top-k on the same normalized rows."""
+    from scrfd_arcface_facerecognition_tpu_torch import parallel
+    from scrfd_arcface_facerecognition_tpu_torch.ops import (
+        l2_normalize, stable_top_k)
+
+    rows, nq, k = PAR["dense"]
+    gen = torch.Generator(device=DEV).manual_seed(20)
+    mat = torch.randn((rows, 512), generator=gen, device=DEV)
+    q = torch.randn((nq, 512), generator=gen, device=DEV)
+    mesh = parallel.make_mesh((len(slots),), ("model",), devices=slots)
+    sync_all(torch)
+    t = time.perf_counter()
+    sg = parallel.ShardedGallery(mat, mesh, axis="model")
+    sync_all(torch)
+    place_ms = (time.perf_counter() - t) * 1e3
+    del mat
+    flat = l2_normalize(torch.cat([r.to(DEV) for r in sg._rows.rows]))
+    qn = l2_normalize(q)
+
+    def single():
+        s, i = stable_top_k(qn @ flat.T, k)
+        return s.cpu().numpy(), i.cpu().numpy()
+
+    shard_ms, _, (ss, si) = median_ms(torch, lambda: sg.search(q, k=k))
+    flat_ms, _, (fs, fi) = median_ms(torch, single)
+    if not np.array_equal(si, fi):
+        fail(f"dense sharded: ids differ in {int((si != fi).sum())} places")
+    gap = float(np.abs(ss - fs).max())
+    if not gap <= 1e-5:
+        fail(f"dense sharded: scores {gap} apart > 1e-5")
+    rep.say(f"20a dense ShardedGallery ({label}): {rows} x 512 f32 rows "
+            f"({rows * 512 * 4 / 1e9:.2f} GB) over {len(slots)} shards, "
+            f"normalized and placed in {place_ms:.1f} ms; Q={nq}, k={k}: "
+            f"ids equal to the single-device top-k, scores at most {gap:.3g} apart "
+            f"({int((ss != fs).sum())} of {ss.size} not bit-equal); "
+            f"search median {shard_ms:.2f} ms sharded, {flat_ms:.2f} ms "
+            f"single-device (TF32 off)")
+    del sg, flat
+    return dict(ms=shard_ms, single_ms=flat_ms)
+
+
+def phase_pq_sharded(torch, rep, slots, label, flat, queries, cpu_rows,
+                     cpu_ids):
+    """20b: phase 7's codec and rows in a PQGallery(mesh=) against phase
+    7's unsharded PQGallery; then AutoGallery(tier="pq", mesh=) through a
+    migration and snapshots between meshed and unmeshed."""
+    import tempfile
+    from scrfd_arcface_facerecognition_tpu_torch import parallel
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import (
+        AutoGallery, PQGallery, pq_adc)
+
+    k = PAR["k"]
+    mesh = parallel.make_mesh((len(slots),), ("model",), devices=slots)
+    n = len(flat)
+    ids = flat._ids[:n]
+    t = time.perf_counter()
+    meshed = PQGallery(flat.codec, capacity=PAR["pq_capacity"],
+                       keep_exact=True, device=DEV, mesh=mesh)
+    meshed.add(ids, flat._exact[:n])
+    sync_all(torch)
+    fill_s = time.perf_counter() - t
+    if meshed.capacity != flat.capacity or not torch.equal(
+            meshed._codes, flat._codes):
+        fail("sharded PQ: the meshed gallery's codes differ from phase 7's")
+    out, launches, errs = {}, 0, []
+    for name, kw in (("hilo", dict(k=k)), ("hi", dict(k=k, rerank=32))):
+        pq_adc.launches = 0
+        s, i = meshed.search(queries, **kw)
+        sync_all(torch)
+        got = pq_adc.launches
+        if got != len(slots):
+            fail(f"sharded PQ ({name}): K2 launched {got} times, not once "
+                 f"for each of the {len(slots)} shards")
+        launches += got
+        fs, fi = flat.search(queries, **kw)
+        if not (np.array_equal(i, fi) and np.array_equal(s, fs)):
+            fail(f"sharded PQ ({name}): not bit-equal to the unsharded "
+                 f"search (ids differ in {int((i != fi).sum())} places, "
+                 f"scores {float(np.abs(s - fs).max())} apart)")
+        shard_ms = median_ms(torch, lambda: meshed.search(queries, **kw))[0]
+        flat_ms = median_ms(torch, lambda: flat.search(queries, **kw))[0]
+        out[name] = (shard_ms, flat_ms)
+    # K2 against its plain version on the first shard's inputs
+    lut = meshed.codec.lut(queries)
+    shard0 = meshed._shards.rows[0]
+    for precision in pq_adc.PRECISIONS:
+        errs.append(compare_k2(torch, pq_adc, lut, shard0, precision)[0])
+    rep.say(f"20b sharded PQ ({label}): phase 7's codec and {n} rows in a "
+            f"{meshed.capacity}-row PQGallery(mesh=) over {len(slots)} "
+            f"shards (filled in {fill_s:.2f} s, codes equal to phase 7's); "
+            f"{len(queries)} queries, k={k}: K2 launched once a shard a "
+            f"search, ids and scores bit-equal to the unsharded gallery in "
+            f"'hilo' (no rerank) and 'hi' (rerank 32); search median ms "
+            f"sharded / unsharded: " + ", ".join(
+                f"{p} {a:.2f} / {b:.2f}" for p, (a, b) in out.items())
+            + f"; K2 vs plain on shard 0 ({shard0.shape[0]} rows) max abs "
+            f"err {max(errs):.3g}")
+    del meshed
+
+    ag = AutoGallery(vector_size=flat.codec.dim, tier="pq", mesh=mesh,
+                     min_train_rows=PAR["auto_min_rows"], device=DEV)
+    pq_adc.launches = 0
+    ag.add_batch(cpu_ids, cpu_rows)
+    if ag.tier != "pq" or len(ag._pq._shards.rows) != len(slots):
+        fail("AutoGallery(mesh=): the PQ tier is not sharded over the mesh")
+    want = ag.search_batch(queries, k=k)
+    launches += pq_adc.launches
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        path = os.path.join(d, "meshed.npz")
+        ag.snapshot(path)
+        plain = AutoGallery.restore(path, vector_size=flat.codec.dim,
+                                    tier="pq", device=DEV)
+        path2 = os.path.join(d, "plain.npz")
+        plain.snapshot(path2)
+        back = AutoGallery.restore(path2, vector_size=flat.codec.dim,
+                                   tier="pq", mesh=mesh, device=DEV)
+    pq_adc.launches = 0
+    for g, what in ((plain, "restored unmeshed"), (back, "restored onto "
+                                                   "the mesh")):
+        hits = g.search_batch(queries, k=k)
+        if [[(h.id, h.score) for h in x] for x in hits] != [
+                [(h.id, h.score) for h in x] for x in want]:
+            fail(f"AutoGallery(mesh=): the snapshot {what} searches "
+                 f"differently")
+    launches += pq_adc.launches
+    rep.say(f"20b AutoGallery(tier='pq', mesh=) over {len(cpu_ids)} rows: "
+            f"migrated to a PQ tier of {len(slots)} shards; its snapshot "
+            f"restored unmeshed and that one's back onto the mesh give "
+            f"the same hits (ids and scores equal)")
+    return dict(launches=launches, err=max(errs), ms=out)
+
+
+def phase_dp(torch, rep, slots, label):
+    """20c: frame DP at phase 4's width against one unsharded call, f32
+    with TF32 off; K1 counted and held to its plain version."""
+    from scrfd_arcface_facerecognition_tpu_torch import FacePipeline, ops
+    from scrfd_arcface_facerecognition_tpu_torch import parallel
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    c = PAR["dp"]
+    nb, (h, w), max_num, ng = c["frames"], c["hw"], c["max_num"], c["gallery"]
+    pipe = FacePipeline(det_variant=MAIN["det"], rec_variant=MAIN["rec"],
+                        gallery_capacity=ng, seed=0, device=DEV)
+    rng = np.random.default_rng(20)
+    frames = torch.from_numpy(rng.integers(0, 255, (nb, h, w, 3),
+                                           dtype=np.uint8)).to(DEV)
+    first = pipe(frames, max_num=max_num)
+    gal = np.concatenate([
+        rng.normal(size=(ng - 4, 512)).astype(np.float32),
+        first.embeddings[first.valid].cpu().numpy()[:4]])
+    pipe.set_gallery(gal, [f"p{i}" for i in range(len(gal))])
+    mesh = parallel.make_mesh((len(slots),), devices=slots)
+    sharded = parallel.shard_frames(frames, mesh)
+    want = pipe(frames, max_num=max_num)
+    pipe(sharded, max_num=max_num)                 # the replicas, warm-up
+    sync_all(torch)
+    wa.launches = 0
+    with captured_calls(ops, "warp_align_crops") as calls:
+        got = pipe(sharded, max_num=max_num)
+        sync_all(torch)
+    launches = wa.launches
+    if launches == 0:
+        fail("frame DP: K1 was launched no time")
+    gaps = hold_sharded(torch, got, want, "frame DP")
+    check_output(torch, got, nb, max_num, "frame DP")
+    err, said = k1_on_path(torch, wa, calls)
+    shard_ms = median_ms(torch, lambda: pipe(sharded, max_num=max_num),
+                         n=3)[0]
+    flat_ms = median_ms(torch, lambda: pipe(frames, max_num=max_num), n=3)[0]
+    rep.say(f"20c frame DP ({label}): {MAIN['det']} + {MAIN['rec']} seeded, "
+            f"{nb}x{h}x{w} frames split {len(slots)} ways, gallery {ng}, "
+            f"max_num {max_num}, f32 TF32 off: {int(got.valid.sum())} faces, "
+            f"{int((got.match_idx >= 0).sum())} matches; valid, count and "
+            f"match_idx equal to one unsharded call, max |d| " + ", ".join(
+                f"{k} {v:.3g}" for k, v in gaps.items())
+            + f"; K1 launches {launches} (one a slot with faces), vs plain "
+            f"on {said} max abs err {err:.3g} u8; ms a call sharded "
+            f"{shard_ms:.2f}, unsharded {flat_ms:.2f}")
+    return pipe, dict(launches=launches, err=err, ms=shard_ms,
+                      single_ms=flat_ms)
+
+
+def phase_disagg(torch, rep, slots, label, pipe):
+    """20d: DisaggPipeline over half the slots each way, the gallery
+    sharded and "auto", process_stream(depth=2) against the pipeline; K1
+    counted; on one card ``realtime --disagg 1`` raises the JAX app's
+    message."""
+    from scrfd_arcface_facerecognition_tpu_torch import ops, parallel
+    from scrfd_arcface_facerecognition_tpu_torch.apps import realtime
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.parallel import (
+        sharded_gallery)
+
+    c, d = PAR["dp"], PAR["disagg"]
+    rng = np.random.default_rng(21)
+    batches = [rng.integers(0, 255, (c["frames"], *c["hw"], 3),
+                            dtype=np.uint8) for _ in range(d["batches"])]
+    det_g, emb_g = parallel.split_devices(devices=slots)
+    launches, errs, times = 0, [], {}
+    wants = [pipe(b, max_num=c["max_num"]) for b in batches]
+    for shard in (True, "auto"):
+        server = parallel.DisaggPipeline(pipe, det_g, emb_g,
+                                         shard_gallery=shard)
+        list(server.process_stream(batches[:1], max_num=c["max_num"]))
+        sync_all(torch)
+        placed = server._gallery_placed()
+        if (shard is True) != isinstance(placed, sharded_gallery.RowShards):
+            fail(f"disagg shard_gallery={shard}: gallery placed as "
+                 f"{type(placed).__name__}")
+        wa.launches = 0
+        with captured_calls(ops, "warp_align_crops") as calls:
+            outs = list(server.process_stream(batches, max_num=c["max_num"],
+                                              depth=2))
+            sync_all(torch)
+        k1 = wa.launches
+        if k1 == 0:
+            fail(f"disagg shard_gallery={shard}: K1 was launched no time")
+        launches += k1
+        gaps = {}
+        for i, (o, w) in enumerate(zip(outs, wants)):
+            check_output(torch, o, c["frames"], c["max_num"], "disagg")
+            g = hold_sharded(torch, o, w, f"disagg batch {i} "
+                                          f"(shard_gallery={shard})")
+            gaps = {k: max(v, gaps.get(k, 0.0)) for k, v in g.items()}
+        err, said = k1_on_path(torch, wa, calls[:1])
+        errs.append(err)
+        times[shard] = median_ms(torch, lambda: list(server.process_stream(
+            batches, max_num=c["max_num"], depth=2)), n=3)[0]
+        rep.say(f"20d disagg ({label}): detect slots "
+                f"{[s.id for s in det_g]}, embed slots "
+                f"{[s.id for s in emb_g]}, shard_gallery={shard} "
+                f"({type(placed).__name__}); process_stream(depth=2) of "
+                f"{len(batches)} batches of {c['frames']} frames: each equal "
+                f"to the pipeline's call (max |d| " + ", ".join(
+                    f"{k} {v:.3g}" for k, v in gaps.items())
+                + f"); K1 launches {k1}, vs plain on {said} max abs "
+                f"err {err:.3g} u8; ms for the {len(batches)} batches "
+                f"{times[shard]:.2f}")
+    flat_ms = median_ms(torch, lambda: list(pipe.process_stream(
+        batches, max_num=c["max_num"], depth=2)), n=3)[0]
+    rep.say(f"20d the co-located FacePipeline.process_stream(depth=2) of the "
+            f"same batches: {flat_ms:.2f} ms")
+    if torch.cuda.device_count() < 2:
+        args = realtime.parse_args(["--disagg", "1", "--det-weight",
+                                    "det_500m.onnx", "--rec-weight",
+                                    "w600k_mbf.onnx"])
+        try:
+            realtime.run(args, device=DEV)
+        except ValueError as e:
+            if "needs at least 2 devices" not in str(e):
+                raise
+            rep.say(f"20d realtime --disagg 1 on one card raises the JAX "
+                    f"app's message: {e}")
+        else:
+            fail("realtime --disagg 1 ran on one card")
+    return dict(launches=launches, err=max(errs), ms=times, flat_ms=flat_ms)
+
+
+def phase_parallel(torch, rep, gal):
+    """20: (a) the dense sharded gallery, (b) the sharded PQ gallery (K2 a
+    shard) and AutoGallery(mesh=), (c) frame DP at full width, (d)
+    disaggregation; (e) every time beside its single-device one."""
+    t0 = time.perf_counter()
+    slots, label = parallel_slots(torch)
+    rep.say(f"phase 20 mesh: {label}: "
+            + ", ".join(f"slot {s.id} on {s.device}" for s in slots))
+    dense = phase_dense_sharded(torch, rep, slots, label)
+    pq = phase_pq_sharded(torch, rep, slots, label, gal["pq"],
+                          gal["queries"], gal["rows"], gal["ids"])
+    with full_f32(torch):
+        pipe, dp = phase_dp(torch, rep, slots, label)
+        dis = phase_disagg(torch, rep, slots, label, pipe)
+    rep.say(f"20e per-call ms, sharded / single-device ({label}): dense "
+            f"search {dense['ms']:.2f} / {dense['single_ms']:.2f}; PQ "
+            + ", ".join(f"{p} {a:.2f} / {b:.2f}"
+                        for p, (a, b) in pq["ms"].items())
+            + f"; DP call {dp['ms']:.2f} / {dp['single_ms']:.2f}; disagg "
+            f"stream of {PAR['disagg']['batches']} batches "
+            + ", ".join(f"shard_gallery={k} {v:.2f}"
+                        for k, v in dis["ms"].items())
+            + f" / {dis['flat_ms']:.2f}; phase 20 took "
+            f"{time.perf_counter() - t0:.1f} s")
+    return dict(k1=dp["launches"] + dis["launches"],
+                err1=max(dp["err"], dis["err"]), k2=pq["launches"],
+                err2=pq["err"])
+
+
 def main():
     import torch
 
@@ -5084,7 +5457,10 @@ def main():
     # 19. the detector: train, checkpoint, AP, export, serve
     dt = phase_det_train(torch, rep)
 
-    # 20. kernels
+    # 20. multi-device serving
+    par = phase_parallel(torch, rep, gal)
+
+    # 21. kernels
     t2 = gal["times"]
     kernels = [{
         "name": wa.NAME, "route": "cuda",
@@ -5092,18 +5468,19 @@ def main():
         "replaces": "scrfd_arcface_facerecognition_tpu/ops/pallas_warp.py:430",
         "launches": launches + bf["launches"] + rt["launches"]
         + ox["launches"] + cam["launches"] + web["k1"] + tr["launches"]
-        + dt["launches"],
+        + dt["launches"] + par["k1"],
         "max_abs_err": max(err3, err4, sp["err1"], fa["err"], eng["err"],
                            bf["err"], rt["err"], ox["err"], cam["err"],
-                           web["err1"], tr["err"], dt["err"]),
+                           web["err1"], tr["err"], dt["err"], par["err1"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     }, {
         "name": pq_adc.NAME, "route": "cuda",
         "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/pq_adc.cu",
         "replaces": "scrfd_arcface_facerecognition_tpu/gallery/pq.py:302",
-        "launches": gal["launches"] + web["k2"],
-        "max_abs_err": max(err6, gal["err"], eng_pq["err"], web["err2"]),
+        "launches": gal["launches"] + web["k2"] + par["k2"],
+        "max_abs_err": max(err6, gal["err"], eng_pq["err"], web["err2"],
+                           par["err2"]),
         "ms": t2["ms"], "plain_ms": t2["plain_ms"],
         "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
         "library_ms": t2["library_ms"],

@@ -18,14 +18,16 @@ names a caller can replace: ``read_image`` (gallery photos),
 Weight files that exist at ``--det-weight`` / ``--rec-weight`` run
 through the ONNX graph executor (``models/onnx_exec.py``); without the
 files the variants are the seeded models the file names name, as in the
-JAX app. Not ported yet: ``--disagg`` above 0 (multi-device serving,
-ROADMAP.md queue 1, item 8), which raises NotImplementedError.
+JAX app. ``--disagg N`` serves through ``parallel.DisaggPipeline``: N
+devices detect, the rest embed and match (``run`` takes the slots as
+``devices``; by default the CUDA cards, so one card cannot).
 """
 from __future__ import annotations
 
 import argparse
 import itertools
 import logging
+import math
 import os
 import random
 from typing import List, Tuple
@@ -33,7 +35,9 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..parallel.disagg import DisaggPipeline, split_devices
 from ..pipeline import FacePipeline
+from ..pipeline.face_pipeline import PipelineOutput
 from ..runtime.native import (CAP_PROP_FPS, CAP_PROP_FRAME_HEIGHT,
                               CAP_PROP_FRAME_WIDTH)
 from ..runtime.video import BatchedFrameReader, open_capture
@@ -83,8 +87,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--max-frames", type=int, default=0,
                         help="Stop after N frames (0 = all)")
     parser.add_argument("--disagg", type=int, default=0,
-                        help="Stage-disaggregated deployment over several "
-                             "devices (not ported: must be 0)")
+                        help="Stage-disaggregated deployment: N devices run "
+                             "detection, the rest run embedding+match "
+                             "(0 = co-located; needs >=2 devices)")
     return parser.parse_args(argv)
 
 
@@ -178,17 +183,33 @@ def load_gallery(pipeline: FacePipeline, faces_dir: str):
     return targets, colors
 
 
-def run(params: argparse.Namespace, device=None) -> dict:
+def disagg_server(pipeline: FacePipeline, n_det: int, devices=None):
+    """``--disagg``: a ``DisaggPipeline`` over ``split_devices(n_det,
+    devices)`` and the batch multiple both its groups divide (their least
+    common multiple)."""
+    det_g, emb_g = split_devices(n_det=n_det, devices=devices)
+    return (DisaggPipeline(pipeline, det_g, emb_g),
+            math.lcm(len(det_g), len(emb_g)))
+
+
+def padded(batches, mult: int):
+    """Each batch padded to a multiple of ``mult`` by repeating its last
+    frame (the final batch of a stream may be partial)."""
+    for b in batches:
+        pad = (-len(b)) % mult
+        yield np.concatenate([b, np.repeat(b[-1:], pad, axis=0)]) if pad else b
+
+
+def run(params: argparse.Namespace, device=None, devices=None) -> dict:
     """The app: gallery, then the stream, annotated and written. Returns
-    {"frames": frames written, "targets": gallery size}."""
+    {"frames": frames written, "targets": gallery size}. ``devices``: the
+    slots ``--disagg`` splits (default: the CUDA cards)."""
     logging.basicConfig(
         level=getattr(logging, params.log_level.upper(), None),
         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
-    if params.disagg:
-        raise NotImplementedError(
-            f"--disagg {params.disagg}: multi-device serving is not ported "
-            f"yet (ROADMAP.md queue 1, item 8); run with --disagg 0")
     pipeline = app_pipeline(params, device)
+    server = (disagg_server(pipeline, params.disagg, devices)
+              if params.disagg else None)
     targets, colors = load_gallery(pipeline, params.faces_dir)
 
     # the native ffmpeg decoder for files and streams, cv2 for webcams
@@ -206,8 +227,14 @@ def run(params: argparse.Namespace, device=None) -> dict:
         # the stream runs batches ahead of the drawing (process_stream's
         # depth); the tee hands the drawing the same batches in order
         feed, draw_feed = itertools.tee(iter(reader))
-        stream = pipeline.process_stream(feed, max_num=params.max_num)
+        if server is None:
+            stream = pipeline.process_stream(feed, max_num=params.max_num)
+        else:
+            stream = server[0].process_stream(padded(feed, server[1]),
+                                              max_num=params.max_num)
         for batch, out in zip(draw_feed, stream):
+            if out.boxes.shape[0] != len(batch):   # a padded batch
+                out = PipelineOutput(*(x[:len(batch)] for x in out))
             annotate_batch(batch, out, pipeline.names, colors)
             for frame in batch:
                 writer.write(frame)

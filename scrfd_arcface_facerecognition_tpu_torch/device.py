@@ -50,3 +50,12 @@ def full_f32() -> Iterator[None]:
             yield
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+def on_device(device: torch.device):
+    """A block whose work goes to ``device``: ``torch.cuda.device`` for a
+    CUDA device (the current device is what the kernels' C launchers, the
+    current stream and a new event refer to), nothing for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -12,7 +12,8 @@ the GalleryStore API and picks the tier by size:
 The threshold defaults to the row count whose f32 matrix fills
 `hbm_budget_gb`, and `tier="pq"` migrates as soon as enough rows exist to
 train a codec. Both tiers work on the gallery's device: the CUDA card
-unless the caller passes ``device="cpu"``.
+unless the caller passes ``device="cpu"``. With a ``mesh``, the PQ tier's
+codes are row-sharded over its ``axis`` (``PQGallery(mesh=)``).
 """
 from __future__ import annotations
 
@@ -56,9 +57,6 @@ class AutoGallery:
                  mesh=None, axis: str = "model", device=None):
         if tier not in ("auto", "dense", "pq"):
             raise ValueError(f"unknown tier {tier!r}")
-        if mesh is not None:
-            raise ValueError("mesh: the multi-device gallery is not part of "
-                             "the port yet; pass mesh=None")
         if tier != "dense" and vector_size % pq_m:
             # fail at construction, not at the migration threshold; a
             # forced-dense gallery never reaches the PQ tier, so an odd
@@ -128,7 +126,7 @@ class AutoGallery:
                                   device=self.device)
         cap = max(2 * len(ids), self.min_train_rows * 4, 1024)
         pq = PQGallery(codec, capacity=cap, keep_exact=True,
-                       device=self.device)
+                       device=self.device, mesh=self.mesh, axis=self.axis)
         return pq, pq.add(np.asarray(ids, np.int64), mat)
 
     def _migrate(self) -> None:
@@ -240,7 +238,7 @@ class AutoGallery:
         (codec reused; rows re-added from the exact mirror)."""
         cap = self._pq_capacity_for(pq, row_of, need)
         new = PQGallery(pq.codec, capacity=cap, keep_exact=True,
-                        device=self.device)
+                        device=self.device, mesh=self.mesh, axis=self.axis)
         ids = sorted(row_of)
         if ids:
             rows_src = [row_of[p] for p in ids]
@@ -544,7 +542,8 @@ class AutoGallery:
                     f"{path} is a PQ-tier snapshot but tier='dense' was "
                     f"requested; restore with tier='auto'/'pq', or "
                     f"restore the snapshot that matches the policy")
-            pq = PQGallery.restore(path, device=g.device)
+            pq = PQGallery.restore(path, device=g.device, mesh=g.mesh,
+                                   axis=g.axis)
         else:
             g._dense = GalleryStore.restore(path, device=g.device)
             if g._migration_due():

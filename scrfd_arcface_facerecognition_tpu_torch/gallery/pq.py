@@ -14,6 +14,10 @@ from the same rows. The gallery is capacity-padded: K2 scans every capacity
 row and a validity mask follows. Everything runs on the CUDA card unless
 the caller passes ``device="cpu"``: the kernel on the card, its plain
 version (the f32 or bf16-LUT scan) on the CPU.
+
+Given a mesh, the codes are row-sharded over an axis's slots
+(``sharded_pq_top_k``): K2 scores each shard on its own device, and the
+shards' candidates merge as the dense sharded search's do.
 """
 from __future__ import annotations
 
@@ -24,8 +28,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import full_f32_matmul, resolve_device
-from ..ops import stable_top_k
+from ..device import full_f32_matmul, on_device, resolve_device
+from ..parallel.mesh import Mesh, Slot
+from ..parallel.sharded_gallery import RowShards, local_top_k, merge_top_k
 from ..stages import stage
 from .pq_adc import adc_scores_plain, pq_adc_scores
 
@@ -167,6 +172,32 @@ def adc_scores(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return adc_scores_plain(lut, codes, "hilo")
 
 
+def sharded_pq_top_k(queries, codec: PQCodec, codes: RowShards, k: int,
+                     precision: str = "hilo"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k ADC search over row-sharded codes: the LUT is made once on
+    the codec's device and copied to each shard's device, where K2 scores
+    the shard's codes; invalid rows -> -inf, a local stable top-k with
+    global rows, then the merge in shard order on the codec's device
+    (ties rank the lower global row first, as the JAX package's tiled
+    all_gather + top_k). One shard is the unsharded search."""
+    with stage("pq_lut"):
+        lut = codec.lut(queries)
+    luts = {}
+    cands = []
+    for s, (c, v) in enumerate(zip(codes.rows, codes.valid)):
+        if c.device not in luts:
+            luts[c.device] = lut.to(c.device)
+        with on_device(c.device):
+            with stage("pq_adc"):
+                scores = pq_adc_scores(luts[c.device], c, precision)
+            with stage("pq_topk"):
+                scores = torch.where(v[None], scores, -torch.inf)
+                cands.append(local_top_k(scores, k, s, codes.per))
+    with stage("pq_topk"):
+        return merge_top_k(cands, k, lut.device)
+
+
 class PQGallery:
     """Capacity-padded PQ store with the GalleryStore search surface.
 
@@ -178,26 +209,67 @@ class PQGallery:
     It works on the CUDA card unless given ``device="cpu"`` (the codec
     moves there). keep_exact keeps the full-precision rows in host memory,
     so search() can rerank the ADC shortlist exactly.
+
+    ``mesh`` row-shards the codes over ``axis``: the capacity rounds up to
+    a multiple of the axis size, global slot r lives in shard r // per at
+    row r % per, and each shard sits on its slot's device (the codec, the
+    LUT and the merge stay on ``device``). Snapshots hold the global codes,
+    so a gallery snapshotted on a mesh restores unsharded and the reverse.
     """
 
     def __init__(self, codec: PQCodec, capacity: int = 1 << 20,
-                 keep_exact: bool = False, device=None):
+                 keep_exact: bool = False, device=None,
+                 mesh: Optional[Mesh] = None, axis: str = "model"):
         self.device = resolve_device(device)
         if codec.device != self.device:
             codec = PQCodec(codec.centroids.to(self.device))
         self.codec = codec
+        self.mesh = mesh
+        self.axis = axis
+        slots = (mesh.axis_slots(axis) if mesh is not None
+                 else [Slot(0, self.device)])
+        n = len(slots)
+        capacity = -(-capacity // n) * n
         self.capacity = capacity
+        per = capacity // n
+        self._shards = RowShards(
+            tuple(torch.zeros((per, codec.m), dtype=torch.uint8,
+                              device=s.device) for s in slots),
+            tuple(torch.zeros((per,), dtype=torch.bool, device=s.device)
+                  for s in slots), tuple(slots))
+        # allocated at the final (mesh-rounded) capacity, so every code row
+        # has an exact row
         self._exact = (np.zeros((capacity, codec.dim), np.float32)
                        if keep_exact else None)
-        self._codes = torch.zeros((capacity, codec.m), dtype=torch.uint8,
-                                  device=self.device)
-        self._valid = torch.zeros((capacity,), dtype=torch.bool,
-                                  device=self.device)
         self._ids = np.full((capacity,), -1, np.int64)
         self._free = list(range(capacity - 1, -1, -1))  # deleted slots reuse
 
     def __len__(self) -> int:
         return self.capacity - len(self._free)
+
+    @property
+    def _codes(self) -> torch.Tensor:
+        """The (capacity, M) codes (the shards joined on ``device``)."""
+        rows = self._shards.rows
+        if len(rows) == 1:
+            return rows[0]
+        return torch.cat([r.to(self.device) for r in rows])
+
+    def _write(self, rows: np.ndarray, codes: Optional[torch.Tensor],
+               valid: bool) -> None:
+        """Codes (on the codec's device; None leaves them) and validity of
+        global slots ``rows``, each shard's share written on its device."""
+        per = self._shards.per
+        for s, (c, v) in enumerate(zip(self._shards.rows,
+                                       self._shards.valid)):
+            mine = np.nonzero(rows // per == s)[0]
+            if not len(mine):
+                continue
+            pos = torch.from_numpy(rows[mine] - s * per).to(c.device)
+            if codes is not None:
+                c[pos] = codes[torch.from_numpy(mine).to(codes.device)].to(
+                    c.device)
+            v[pos] = valid
 
     def add(self, ids, embeddings) -> np.ndarray:
         """Add rows; returns the slot indices written."""
@@ -213,9 +285,7 @@ class PQGallery:
             raise ValueError(f"PQ gallery full ({self.capacity})")
         codes = self.codec.encode(emb)
         rows = np.asarray([self._free.pop() for _ in range(n)], np.int64)
-        pos = torch.from_numpy(rows).to(self.device)
-        self._codes[pos] = codes
-        self._valid[pos] = True
+        self._write(rows, codes, True)
         self._ids[rows] = ids
         if self._exact is not None:
             self._exact[rows] = emb
@@ -225,7 +295,7 @@ class PQGallery:
         rows = np.nonzero(self._ids == person_id)[0]
         if not len(rows):
             return False
-        self._valid[torch.from_numpy(rows).to(self.device)] = False
+        self._write(rows, None, False)
         self._ids[rows] = -1
         self._free.extend(int(r) for r in rows)
         return True
@@ -235,12 +305,16 @@ class PQGallery:
     def snapshot(self, path: str) -> None:
         """Atomic PQ-tier checkpoint: codebooks + codes + ids (+ the exact
         rerank rows when keep_exact), as the JAX package's npz (every member
-        zip-CRC-checked; tmp write + os.replace)."""
+        zip-CRC-checked; tmp write + os.replace). The codes are the global
+        ones, in slot order, whatever the mesh."""
         valid_rows = np.nonzero(self._ids >= 0)[0]
-        pos = torch.from_numpy(valid_rows).to(self.device)
+        per = self._shards.per
+        codes = [c[torch.from_numpy(valid_rows[valid_rows // per == s]
+                                    - s * per).to(c.device)].cpu()
+                 for s, c in enumerate(self._shards.rows)]
         arrays = dict(
             centroids=self.codec.centroids.cpu().numpy(),
-            codes=self._codes[pos].cpu().numpy(),
+            codes=torch.cat(codes).numpy(),
             ids=self._ids[valid_rows],
             capacity=np.int64(self.capacity))
         if self._exact is not None:
@@ -252,9 +326,11 @@ class PQGallery:
 
     @classmethod
     def restore(cls, path: str, capacity: Optional[int] = None,
-                device=None) -> "PQGallery":
+                device=None, mesh: Optional[Mesh] = None,
+                axis: str = "model") -> "PQGallery":
         """Rebuild a gallery from snapshot(); codes load directly (no
-        re-encode)."""
+        re-encode). The mesh is a choice of the restoring process, not of
+        the snapshot: the capacity re-rounds to it."""
         with np.load(path) as z:
             centroids = z["centroids"]
             codes = z["codes"]
@@ -264,10 +340,9 @@ class PQGallery:
         n = len(ids)
         g = cls(PQCodec.from_centroids(centroids, device),
                 capacity=max(cap, n, 1), keep_exact=exact is not None,
-                device=device)
+                device=device, mesh=mesh, axis=axis)
         if n:
-            g._codes[:n] = torch.from_numpy(codes).to(g.device)
-            g._valid[:n] = True
+            g._write(np.arange(n), torch.from_numpy(codes), True)
             g._ids[:n] = ids
             g._free = list(range(g.capacity - 1, n - 1, -1))
             if exact is not None:
@@ -280,11 +355,11 @@ class PQGallery:
         """(Q, dim) or (dim,) -> (scores (Q, k), ids (Q, k)); ids -1 and
         score 0 where fewer than k valid rows exist.
 
-        lut -> K2 -> mask -> top-k on the device; ties rank the lower slot
-        first and NaN scores (from a non-finite query) first, as
-        ``lax.top_k`` ranks them. rerank > 0 (requires keep_exact=True):
-        the ADC pass shortlists max(k, rerank) candidates and exact host
-        inner products re-order them.
+        lut -> K2 -> mask -> top-k on the device (``sharded_pq_top_k``, K2
+        once a shard); ties rank the lower slot first and NaN scores (from
+        a non-finite query) first, as ``lax.top_k`` ranks them. rerank > 0
+        (requires keep_exact=True): the ADC pass shortlists max(k, rerank)
+        candidates and exact host inner products re-order them.
 
         precision: the ADC pass's LUT, "hilo" (exact f32) or "hi" (bf16);
         default "hi" when an exact rerank follows, "hilo" otherwise.
@@ -295,17 +370,14 @@ class PQGallery:
             precision = "hi" if rerank else "hilo"
         if rerank and self._exact is None:
             raise ValueError("rerank needs PQGallery(keep_exact=True)")
-        with stage("pq_lut"):
-            lut = self.codec.lut(q)
-        with stage("pq_adc"):
-            scores = pq_adc_scores(lut, self._codes, precision)
+        s, i = sharded_pq_top_k(q, self.codec, self._shards, k_fetch,
+                                precision)
         with stage("pq_topk"):
-            scores = torch.where(self._valid[None], scores, -torch.inf)
-            s, i = stable_top_k(scores, min(k_fetch, self.capacity))
             s = s.cpu().numpy()
             i = i.cpu().numpy()
         if s.shape[1] < k_fetch:
-            # capacity < k: honor the (Q, k) contract, padding with -inf
+            # fewer candidates than asked (capacity < k, or the shards'
+            # together < k): honor the (Q, k) contract, padding with -inf
             # scores (masked to ids=-1 below)
             pad = ((0, 0), (0, k_fetch - s.shape[1]))
             s = np.pad(s, pad, constant_values=-np.inf)

@@ -107,9 +107,13 @@ def pq_adc_scores(lut: torch.Tensor, codes: torch.Tensor,
     if q == 0 or g == 0:
         return out
     fn = _bind()
-    stream = torch.cuda.current_stream(lut.device).cuda_stream
-    rc = fn(lut.data_ptr(), codes.data_ptr(), out.data_ptr(), q, m, k, g,
-            int(precision == "hi"), stream)
+    # the C launcher works on the current device (the launch, and any
+    # shared-memory attribute or limit it sets or reads): make the tensor's
+    # device current, so that a shard on another card is launched there
+    with torch.cuda.device(lut.device):
+        stream = torch.cuda.current_stream(lut.device).cuda_stream
+        rc = fn(lut.data_ptr(), codes.data_ptr(), out.data_ptr(), q, m, k,
+                g, int(precision == "hi"), stream)
     if rc != 0:
         raise RuntimeError(f"pq_adc kernel launch failed: CUDA error {rc} "
                            f"(Q={q}, M={m}, K={k}, G={g}, {precision})")

@@ -120,9 +120,13 @@ def warp_align_crops(frames: torch.Tensor, minv: torch.Tensor,
     if f == 0:
         return out
     fn = _bind()
-    stream = torch.cuda.current_stream(frames.device).cuda_stream
-    rc = fn(frames.data_ptr(), b, h, w, minv.data_ptr(), frame_idx.data_ptr(),
-            f, out.data_ptr(), oh, ow, stream)
+    # the C launcher works on the current device (the launch, and any
+    # shared-memory attribute or limit it sets or reads): make the tensor's
+    # device current, so that a shard on another card is launched there
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream(frames.device).cuda_stream
+        rc = fn(frames.data_ptr(), b, h, w, minv.data_ptr(),
+                frame_idx.data_ptr(), f, out.data_ptr(), oh, ow, stream)
     if rc != 0:
         raise RuntimeError(f"warp_align kernel launch failed: CUDA error {rc}")
     global launches

@@ -7,18 +7,27 @@ count that picks the bucket; everything else stays on the device. On the
 card the count travels to pinned host memory behind an event
 (``CountReadback``), so ``process_stream`` can queue the next batches'
 detects before it waits for one.
+
+Frames split over a mesh (``parallel.shard_frames``) run each part on its
+slot's device with that device's replicas of the weights and gallery
+(the JAX package's ``_placed``): every part's detect is queued before any
+count is read, and the outputs are joined in frame order on the first
+slot's device.
 """
 from __future__ import annotations
 
 import logging
 from collections import deque
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from .. import ops
-from ..device import resolve_device
+from ..device import on_device, resolve_device
+from ..parallel.data_parallel import Replicas, ShardedFrames
+from ..parallel.sharded_gallery import RowShards
 from ..stages import stage
 from .detector import (Detections, Detector, FrameStaging, as_frames,
                        detect_batch, detect_batch_dynamic)
@@ -43,9 +52,10 @@ class PipelineOutput(NamedTuple):
     match_sim: torch.Tensor
 
 
-def _match_gallery(emb_flat: torch.Tensor, gallery: torch.Tensor,
-                   gallery_valid: torch.Tensor, valid_flat: torch.Tensor,
-                   similarity_thresh: float
+def _match_gallery(emb_flat: torch.Tensor,
+                   gallery: Union[torch.Tensor, RowShards],
+                   gallery_valid: Optional[torch.Tensor],
+                   valid_flat: torch.Tensor, similarity_thresh: float
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(F, D) L2 embeddings -> best_idx (F,) int32 (-1 for invalid or
     below-threshold slots) and best_sim (F,) clamped to [0, inf), zero on
@@ -53,13 +63,17 @@ def _match_gallery(emb_flat: torch.Tensor, gallery: torch.Tensor,
 
     The product is full float32 (no TF32), the reference's HIGHEST
     precision, whatever dtype the embeddings come in; ``argmax`` takes the
-    first maximum, as ``jnp.argmax``.
+    first maximum, as ``jnp.argmax``. A row-sharded gallery (``RowShards``,
+    which holds its own validity) gives the same maximum and row.
     """
-    sims = emb_flat.float() @ gallery.T                          # (F, G)
-    sims = torch.where(gallery_valid[None, :], sims,
-                       torch.full_like(sims, -torch.inf))
-    best_sim = sims.max(dim=-1).values
-    best_idx = sims.argmax(dim=-1)
+    if isinstance(gallery, RowShards):
+        best_sim, best_idx = gallery.best(emb_flat.float())
+    else:
+        sims = emb_flat.float() @ gallery.T                      # (F, G)
+        sims = torch.where(gallery_valid[None, :], sims,
+                           torch.full_like(sims, -torch.inf))
+        best_sim = sims.max(dim=-1).values
+        best_idx = sims.argmax(dim=-1)
     matched = valid_flat & (best_sim > similarity_thresh)
     best_idx = torch.where(matched, best_idx,
                            torch.full_like(best_idx, -1)).to(torch.int32)
@@ -80,8 +94,7 @@ def bucket_slots(valid: torch.Tensor, bucket: int
 
 
 def embed_and_match_bucketed(model, frames: torch.Tensor, det: Detections,
-                             gallery: torch.Tensor,
-                             gallery_valid: torch.Tensor, *,
+                             gallery, gallery_valid, *,
                              similarity_thresh: float,
                              bucket: int) -> PipelineOutput:
     """Stage 2 with face-count bucketing: only the first ``bucket`` slots
@@ -113,7 +126,7 @@ def embed_and_match_bucketed(model, frames: torch.Tensor, det: Detections,
 
 
 def embed_and_match(model, frames: torch.Tensor, det: Detections,
-                    gallery: torch.Tensor, gallery_valid: torch.Tensor, *,
+                    gallery, gallery_valid, *,
                     similarity_thresh: float) -> PipelineOutput:
     """Stage 2 without bucketing: every (B, K) slot is warped, embedded
     and matched (invalid ones give zero embeddings)."""
@@ -129,14 +142,21 @@ def embed_and_match(model, frames: torch.Tensor, det: Detections,
                           match_sim=best_sim.reshape(b, k))
 
 
+def join_outputs(outs: List[PipelineOutput],
+                 device: torch.device) -> PipelineOutput:
+    """Per-slot outputs, in frame order, as one batch on ``device``."""
+    return PipelineOutput(*(torch.cat([o[i].to(device) for o in outs])
+                            for i in range(len(PipelineOutput._fields))))
+
+
 class CountReadback:
     """A batch's face count on its way to the host.
 
     On the card the count is copied into pinned host memory without
-    blocking, and an event is recorded behind the copy; ``value()`` waits
-    on that event alone (the counterpart of the JAX package's
-    ``_read_counts``, which transfers a ready buffer). On the CPU it is
-    the plain ``int``.
+    blocking, and an event is recorded behind the copy on the count's own
+    device's stream; ``value()`` waits on that event alone (the
+    counterpart of the JAX package's ``_read_counts``, which transfers a
+    ready buffer). On the CPU it is the plain ``int``.
     """
 
     def __init__(self, count: torch.Tensor):
@@ -145,7 +165,7 @@ class CountReadback:
             self.host = torch.empty((), dtype=count.dtype, pin_memory=True)
             self.host.copy_(count, non_blocking=True)
             self.event = torch.cuda.Event()
-            self.event.record()
+            self.event.record(torch.cuda.current_stream(count.device))
         else:
             self.host = count
 
@@ -155,12 +175,24 @@ class CountReadback:
         return int(self.host)
 
 
+class Placement(NamedTuple):
+    """What a batch (or a slot's part of one) runs with, on its device:
+    the models, and the gallery (a tensor with its validity, or
+    ``RowShards`` with ``gallery_valid`` None)."""
+    detector: Optional[nn.Module]
+    embedder: nn.Module
+    gallery: Union[torch.Tensor, RowShards]
+    gallery_valid: Optional[torch.Tensor]
+
+
 class Dispatched(NamedTuple):
     """A batch whose detect is queued: its frames on the device, its
-    detections and its face count on the way to the host."""
+    detections, its face count on the way to the host and what its
+    stage 2 runs with."""
     frames: torch.Tensor
     det: Detections
     count: CountReadback
+    placed: Placement
 
 
 class FacePipeline:
@@ -219,6 +251,10 @@ class FacePipeline:
                                           dtype=torch.bool,
                                           device=self.device)
         self._staging = FrameStaging(self.device)
+        # copies on the devices of sharded frames (the JAX package's
+        # placement cache), each made again when its source changes
+        self._replicas = {name: Replicas()
+                          for name in ("det", "emb", "gallery", "valid")}
 
     # ------------------------------------------------------------- gallery
 
@@ -240,41 +276,82 @@ class FacePipeline:
         self._gallery = ops.l2_normalize(torch.from_numpy(buf).to(self.device))
         self._gallery_valid = torch.from_numpy(valid).to(self.device)
         self.names = list(names)
+        # multi-device placements hold copies of the gallery: drop them
+        for r in self._replicas.values():
+            r.clear()
+
+    def _home(self) -> Placement:
+        return Placement(self.detector.model, self.embedder.model,
+                         self._gallery, self._gallery_valid)
+
+    def _placed(self, frames: ShardedFrames) -> List[Placement]:
+        """A placement for each slot of sharded frames: copies of the
+        models and the gallery on the slot's device (one set a device),
+        made again when the pipeline's live ones change, in place too."""
+        devs = [s.device for s in frames.slots]
+        r = self._replicas
+        det = r["det"].on(self.detector.model, devs)
+        emb = r["emb"].on(self.embedder.model, devs)
+        gal = r["gallery"].on(self._gallery, devs)
+        valid = r["valid"].on(self._gallery_valid, devs)
+        return [Placement(det[d], emb[d], gal[d], valid[d]) for d in devs]
 
     # ------------------------------------------------------------- forward
 
     @torch.inference_mode()
     def __call__(self, frames, max_num: int = 0, metric: str = "max",
                  bucketed: bool = True) -> PipelineOutput:
-        """(B, H, W, 3) u8 BGR frames of one shape -> PipelineOutput.
+        """(B, H, W, 3) u8 BGR frames of one shape, or frames sharded over
+        a mesh (``parallel.shard_frames``) -> PipelineOutput.
         ``bucketed=False`` embeds every slot instead of the valid faces'
         bucket (same results, more work; no host sync)."""
+        batch = self._dispatch(frames, max_num, metric)
         if bucketed:
-            return self._finish(self._dispatch(frames, max_num, metric))
-        frames = self._staging(frames)
-        det = self._detect(frames, max_num, metric)
-        return embed_and_match(
-            self.embedder.model, frames, det, self._gallery,
-            self._gallery_valid, similarity_thresh=self.similarity_thresh)
+            return self._finish(batch)
+        parts = batch if isinstance(batch, list) else [batch]
+        outs = []
+        for d in parts:
+            with on_device(d.frames.device):
+                outs.append(embed_and_match(
+                    d.placed.embedder, d.frames, d.det, d.placed.gallery,
+                    d.placed.gallery_valid,
+                    similarity_thresh=self.similarity_thresh))
+        return (join_outputs(outs, parts[0].frames.device)
+                if isinstance(batch, list) else outs[0])
 
-    def _detect(self, frames: torch.Tensor, max_num: int,
-                metric: str) -> Detections:
+    def _detect(self, frames: torch.Tensor, max_num: int, metric: str,
+                model: Optional[nn.Module] = None) -> Detections:
+        """Stage 1 with the pipeline's detector, or ``model`` (a replica
+        on the frames' device)."""
         plan = self.detector.plan(tuple(frames.shape[1:3]),
                                   tight=self.tight_canvas)
         return detect_batch(
-            self.detector.model, frames, plan=plan,
-            conf_thres=self.detector.conf_thres,
+            self.detector.model if model is None else model, frames,
+            plan=plan, conf_thres=self.detector.conf_thres,
             iou_thres=self.detector.iou_thres, pre_nms=self.pre_nms,
             max_det=self.max_det, max_num=max_num, metric=metric,
             compute_dtype=self.detector.dtype)
 
     @torch.inference_mode()
-    def _dispatch(self, frames, max_num: int, metric: str) -> Dispatched:
+    def _dispatch(self, frames, max_num: int, metric: str
+                  ) -> Union[Dispatched, List[Dispatched]]:
         """Stage 1 queued on the device, and the face count sent on its
-        way to the host; nothing here waits for the device."""
-        frames = self._staging(frames)
-        det = self._detect(frames, max_num, metric)
-        return Dispatched(frames, det, CountReadback(det.valid.sum()))
+        way to the host; nothing here waits for the device. Sharded
+        frames give one ``Dispatched`` a slot, every slot's detect queued
+        before any count is read."""
+        if isinstance(frames, ShardedFrames):
+            return [self._dispatch_part(part, placed, max_num, metric)
+                    for part, placed in zip(frames.parts,
+                                            self._placed(frames))]
+        return self._dispatch_part(self._staging(frames), self._home(),
+                                   max_num, metric)
+
+    def _dispatch_part(self, frames: torch.Tensor, placed: Placement,
+                       max_num: int, metric: str) -> Dispatched:
+        with on_device(frames.device):
+            det = self._detect(frames, max_num, metric, placed.detector)
+            return Dispatched(frames, det, CountReadback(det.valid.sum()),
+                              placed)
 
     @torch.inference_mode()
     def call_dynamic(self, frames, wy, wx, det_scales, frame_hws,
@@ -287,28 +364,47 @@ class FacePipeline:
         ``ops.letterbox_matrices``; det_scales (B,); frame_hws (B, 2)
         original sizes. The canvas is the square (untrimmed) one of the
         detector's input size, as exact-shape letterboxing gives it.
+        ``frames`` may be sharded over a mesh; the per-image arrays then
+        split with them.
         """
-        frames = as_frames(frames, self.device)
+        if isinstance(frames, ShardedFrames):
+            parts, placed = frames.parts, self._placed(frames)
+        else:
+            parts, placed = [as_frames(frames, self.device)], [self._home()]
+        host = [np.asarray(a) for a in (wy, wx, det_scales, frame_hws)]
+        batch, lo = [], 0
+        for part, pl in zip(parts, placed):
+            hi = lo + part.shape[0]
+            batch.append(self._dispatch_dynamic(
+                part, pl, *(a[lo:hi] for a in host), max_num, metric))
+            lo = hi
+        return self._finish(batch if isinstance(frames, ShardedFrames)
+                            else batch[0])
 
+    def _dispatch_dynamic(self, frames, placed: Placement, wy, wx,
+                          det_scales, frame_hws, max_num: int,
+                          metric: str) -> Dispatched:
         def dev(a, dtype):
-            return torch.as_tensor(np.asarray(a), dtype=dtype,
-                                   device=self.device)
+            return torch.as_tensor(a, dtype=dtype, device=frames.device)
 
-        inv_scale = 1.0 / dev(det_scales, torch.float32)
-        det = detect_batch_dynamic(
-            self.detector.model, frames, dev(wy, torch.float32),
-            dev(wx, torch.float32), inv_scale, dev(frame_hws, torch.int32),
-            model_hw=self.detector.input_size,
-            conf_thres=self.detector.conf_thres,
-            iou_thres=self.detector.iou_thres, pre_nms=self.pre_nms,
-            max_det=self.max_det, max_num=max_num, metric=metric)
-        return self._finish(Dispatched(frames, det,
-                                       CountReadback(det.valid.sum())))
+        with on_device(frames.device):
+            inv_scale = 1.0 / dev(det_scales, torch.float32)
+            det = detect_batch_dynamic(
+                placed.detector, frames, dev(wy, torch.float32),
+                dev(wx, torch.float32), inv_scale,
+                dev(frame_hws, torch.int32),
+                model_hw=self.detector.input_size,
+                conf_thres=self.detector.conf_thres,
+                iou_thres=self.detector.iou_thres, pre_nms=self.pre_nms,
+                max_det=self.max_det, max_num=max_num, metric=metric)
+            return Dispatched(frames, det, CountReadback(det.valid.sum()),
+                              placed)
 
     def process_stream(self, frames_iter, max_num: int = 0,
                        metric: str = "max", depth: int = 2):
-        """Yields a PipelineOutput per input batch, in order (batches may
-        differ in shape), keeping ``depth`` batches in flight: batches
+        """Yields a PipelineOutput per input batch (frames, or frames
+        sharded over a mesh), in order (batches may differ in shape),
+        keeping ``depth`` batches in flight: batches
         i+1..i+depth are dispatched before batch i's face count is read,
         so the count's trip to the host overlaps device work instead of
         draining the queue. ``depth`` below 1 acts as 1."""
@@ -335,28 +431,38 @@ class FacePipeline:
         return min(b, cap)
 
     @torch.inference_mode()
-    def _finish(self, batch: Dispatched) -> PipelineOutput:
+    def _finish(self, batch: Union[Dispatched, List[Dispatched]]
+                ) -> PipelineOutput:
         """Stage 2 for a dispatched detect, bucketed by the real face
-        count: the batch's one wait for the device."""
-        frames, det = batch.frames, batch.det
+        count: the batch's one wait for the device. A sharded batch's
+        parts each take the bucket of their own count and are joined in
+        frame order on the first part's device."""
+        if isinstance(batch, list):
+            return join_outputs([self._finish_part(d) for d in batch],
+                                batch[0].frames.device)
+        return self._finish_part(batch)
+
+    def _finish_part(self, batch: Dispatched) -> PipelineOutput:
+        frames, det, placed = batch.frames, batch.det, batch.placed
         b, k = det.valid.shape
         count = batch.count.value()
         bucket = self._round_bucket(count, b * k)
+        dev = frames.device
         if bucket == 0:
             return PipelineOutput(
                 boxes=det.boxes, scores=det.scores, kps=det.kps,
                 valid=det.valid, count=det.count,
                 embeddings=torch.zeros((b, k, self.emb_dim),
-                                       dtype=torch.float32,
-                                       device=self.device),
+                                       dtype=torch.float32, device=dev),
                 match_idx=torch.full((b, k), -1, dtype=torch.int32,
-                                     device=self.device),
+                                     device=dev),
                 match_sim=torch.zeros((b, k), dtype=torch.float32,
-                                      device=self.device))
-        return embed_and_match_bucketed(
-            self.embedder.model, frames, det, self._gallery,
-            self._gallery_valid, similarity_thresh=self.similarity_thresh,
-            bucket=bucket)
+                                      device=dev))
+        with on_device(dev):
+            return embed_and_match_bucketed(
+                placed.embedder, frames, det, placed.gallery,
+                placed.gallery_valid,
+                similarity_thresh=self.similarity_thresh, bucket=bucket)
 
     def match_names(self, out: PipelineOutput):
         """Host-side: match_idx -> names ('Unknown' below threshold)."""

@@ -192,9 +192,14 @@ def conv3x3(x: torch.Tensor, w3: torch.Tensor,
     if y.numel() == 0:
         return y
     fn = _bind()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), w3.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            y.data_ptr(), b, c, h, wp, f, int(relu), stream)
+    # the C launcher works on the current device (the launch, and any
+    # shared-memory attribute or limit it sets or reads): make the tensor's
+    # device current, so that a shard on another card is launched there
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), w3.data_ptr(), scale.data_ptr(),
+                bias.data_ptr(), y.data_ptr(), b, c, h, wp, f, int(relu),
+                stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3 kernel launch failed: CUDA error {rc} "
                            f"(B={b}, C={c}, H={h}, Wp={wp}, F={f})")

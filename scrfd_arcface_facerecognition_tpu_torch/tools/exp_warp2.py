@@ -459,11 +459,15 @@ def warp_crops_band(frames_planar: torch.Tensor, canvas_planar: torch.Tensor,
     nb, _, fh, fw = frames_planar.shape
     _, _, ch, cw = canvas_planar.shape
     fn = _bind()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(frames_planar.data_ptr(), nb, fh, fw, canvas_planar.data_ptr(),
-            ch, cw, params.iparams.data_ptr(), params.fparams.data_ptr(), f,
-            RING, out.data_ptr(), None if plan is None else plan.data_ptr(),
-            stream)
+    # the C launcher works on the current device (the launch, and any
+    # shared-memory attribute or limit it sets or reads): make the tensor's
+    # device current, so that a shard on another card is launched there
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(frames_planar.data_ptr(), nb, fh, fw,
+                canvas_planar.data_ptr(), ch, cw, params.iparams.data_ptr(),
+                params.fparams.data_ptr(), f, RING, out.data_ptr(),
+                None if plan is None else plan.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"warp_band kernel launch failed: CUDA error {rc}")
     global launches

@@ -508,3 +508,45 @@ def test_auto_nonfinite_rows_on_both_tiers_match_jax():
         tgal.AutoGallery(vector_size=200, device="cpu")
     assert tgal.AutoGallery(vector_size=200, tier="dense",
                             device="cpu").tier == "dense"
+
+
+def test_auto_on_a_mesh_migrates_grows_and_restores_like_jax(tmp_path):
+    """AutoGallery(mesh=) over 8 CPU slots against the JAX one over 8
+    virtual devices: the migration, growth past the PQ capacity, upserts
+    and deletes leave the same state and hits (scores within 1e-5) on
+    queries near the enrolled identities (the reranked shortlist of the
+    JAX scan's f32 LUT and the port's bf16 one agree there); the
+    PQ tier's codes are sharded over the slots; its snapshot restores
+    unsharded and back onto the mesh with the same hits."""
+    import jax
+    from scrfd_arcface_facerecognition_tpu import parallel as jpar
+    from scrfd_arcface_facerecognition_tpu_torch import parallel as tpar
+
+    jm = jpar.make_mesh((8,), ("model",), devices=jax.devices()[:8])
+    tm = tpar.make_mesh((8,), ("model",),
+                        devices=tpar.device_slots("cpu", 8))
+    rng = np.random.default_rng(12)
+    rows, centers = _identity_rows(rng, 20, 3, sigma=0.02)
+    q = centers[:6] + 0.02 * rng.normal(size=(6, 64)).astype(np.float32)
+    jg = jgal.AutoGallery(vector_size=64, pq_m=16, tier="pq",
+                          min_train_rows=8, mesh=jm)
+    tg = tgal.AutoGallery(vector_size=64, pq_m=16, tier="pq",
+                          min_train_rows=8, mesh=tm, device="cpu")
+    more = _rows(rng, 1100)
+    for g in (jg, tg):
+        g.add_batch(np.arange(60), rows[:60])
+        assert g.tier == "pq"
+        g.add_batch(np.arange(1000, 2100), more)      # past capacity 1024
+        assert g.update_embedding(3, rows[0]) and g.delete_embedding(5)
+    assert tg._pq.capacity == jg._pq.capacity
+    assert len(tg._pq._shards.rows) == 8 and tg._pq.mesh is tm
+    _same_state(jg, tg, q, k=6)
+    assert [h[0].id for h in tg.search_batch(more[:3], k=1)] == [
+        1000, 1001, 1002]
+    path = str(tmp_path / "pq.npz")
+    tg.snapshot(path)
+    for mesh in (None, tm):
+        r = tgal.AutoGallery.restore(path, vector_size=64, pq_m=16,
+                                     tier="pq", mesh=mesh, device="cpu")
+        assert r.tier == "pq" and (r._pq.mesh is mesh)
+        _same_state(jg, r, q, k=6)

@@ -34,7 +34,9 @@ def test_import_leaves_no_jax_in_sys_modules():
         "       'train.schedules', 'train.arcface_train',\n"
         "       'tools.train_arcface', 'tools.export_onnx',\n"
         "       'train.state', 'train.scrfd_train', 'train.detection_data',\n"
-        "       'utils.profiling', 'tools.train_scrfd')\n"
+        "       'utils.profiling', 'tools.train_scrfd', 'parallel',\n"
+        "       'parallel.mesh', 'parallel.data_parallel',\n"
+        "       'parallel.sharded_gallery', 'parallel.disagg')\n"
         "bad += [m for m in new if p.__name__ + '.' + m not in sys.modules]\n"
         "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
@@ -83,7 +85,9 @@ def test_no_module_of_the_port_imports_jax_flax_or_the_jax_package():
                 "tools/train_arcface.py", "tools/export_onnx.py",
                 "train/state.py", "train/scrfd_train.py",
                 "train/detection_data.py", "utils/profiling.py",
-                "tools/train_scrfd.py"):
+                "tools/train_scrfd.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/data_parallel.py",
+                "parallel/sharded_gallery.py", "parallel/disagg.py"):
         assert mod in names, mod
     for path in files:
         bad = set(_imported_roots(path)) & set(_FORBIDDEN)
@@ -154,6 +158,41 @@ def test_the_decode_pool_and_the_runtime_import_without_torch():
     assert out.returncode == 0, out.stderr
     assert out.stdout.split("\n")[:2] == ["False True",
                                           "True FacePipeline True"], out.stdout
+
+
+def test_parallel_package_loads_its_exports_lazily_and_raises_without_cuda(
+        monkeypatch):
+    """``parallel`` has the JAX package's exports, imports no torch until
+    one is used, and its mesh helpers take the CUDA cards by default: with
+    none they raise, they never mesh over the CPU on their own."""
+    code = ("import sys\n"
+            "import scrfd_arcface_facerecognition_tpu_torch.parallel as p\n"
+            "print('torch' in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False"], out.stdout
+    from scrfd_arcface_facerecognition_tpu import parallel as jpar
+    from scrfd_arcface_facerecognition_tpu_torch import parallel
+    from scrfd_arcface_facerecognition_tpu_torch.parallel import Slot
+
+    assert set(jpar.__all__) <= set(parallel.__all__)
+    for name in parallel.__all__:
+        assert getattr(parallel, name) is not None, name
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    card = [Slot(0, torch.device("cuda", 0)), Slot(1, torch.device("cuda",
+                                                                   0))]
+    for make in (parallel.make_mesh, parallel.split_devices,
+                 parallel.card_slots,
+                 lambda: parallel.make_hybrid_mesh((1,), ("model",)),
+                 lambda: parallel.device_slots("cuda", 4),
+                 lambda: parallel.make_mesh(devices=card),
+                 lambda: parallel.DisaggPipeline(object(), card[:1],
+                                                 card[1:])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert parallel.local_device_count() == 0
 
 
 def test_package_exports_are_the_same_names_loaded_lazily():

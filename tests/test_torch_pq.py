@@ -5,7 +5,10 @@ Tolerances: the port's plain f32 scan against the JAX scan ``adc_scores`` at
 rtol 1e-6; against the Pallas kernel ``adc_scores_mxu`` (interpret mode) at
 2e-5 of max |score| in "hilo" (its bf16 hi/lo split approximates the f32
 LUT) and at 1e-6 in "hi" (the same bf16 sums). Codec: codes equal and
-centroids within 1e-5. Searches: ids equal, scores within 1e-5.
+centroids within 1e-5. Searches: ids equal, scores within 1e-5. On a mesh
+(8 CPU slots against conftest's 8 virtual devices): the same against the
+JAX package's sharded search, and ids and scores bit-equal to the port's
+unsharded search on the same codes.
 """
 import numpy as np
 import pytest
@@ -277,3 +280,116 @@ def test_full_width_pq_parity():
     q = corpus[::64] + 0.01
     for kw in (dict(k=5), dict(k=5, rerank=32)):
         _same_search(jg, tg, q, **kw)
+
+
+# ------------------------------------------------------- on a mesh of slots
+
+
+def _meshes(n=8):
+    """JAX's mesh over n of conftest's virtual devices, the port's over n
+    CPU slots."""
+    import jax
+    from scrfd_arcface_facerecognition_tpu import parallel as jpar
+    from scrfd_arcface_facerecognition_tpu_torch import parallel as tpar
+
+    return (jpar.make_mesh((n,), ("model",), devices=jax.devices()[:n]),
+            tpar.make_mesh((n,), ("model",),
+                           devices=tpar.device_slots("cpu", n)))
+
+
+@pytest.mark.parametrize("adc_impl,rerank,precision", [
+    ("scan", 0, None), ("scan", 8, None), ("mxu", 0, "hi")])
+def test_sharded_pq_gallery_matches_jax_and_unsharded(codecs, adc_impl,
+                                                      rerank, precision):
+    """PQGallery(mesh=) over 8 CPU slots against the JAX PQGallery over 8
+    virtual devices (``sharded_pq_top_k`` with the scan, and with the
+    Pallas kernel in interpret mode in "hi", the same bf16 sums): capacity
+    rounded alike, slots equal, ids equal, scores within 1e-5; against
+    the port's unsharded gallery on the same calls: ids and scores
+    bit-equal."""
+    jc, tc, corpus = codecs
+    jm, tm = _meshes()
+    jg = jpq.PQGallery(jc, capacity=203, mesh=jm, keep_exact=True,
+                       adc_impl=adc_impl)
+    tg = tpq.PQGallery(tc, capacity=203, keep_exact=True, device="cpu",
+                       mesh=tm)
+    flat = tpq.PQGallery(tc, capacity=208, keep_exact=True, device="cpu")
+    assert tg.capacity == jg.capacity == 208
+    assert [c.shape[0] for c in tg._shards.rows] == [26] * 8
+    ids = np.arange(150) * 3 + 1
+    np.testing.assert_array_equal(tg.add(ids, corpus[:150]),
+                                  jg.add(ids, corpus[:150]))
+    flat.add(ids, corpus[:150])
+    for pid in (4, 31, 448):
+        assert tg.delete(pid) == jg.delete(pid) == flat.delete(pid)
+    for g in (tg, flat):
+        g.add([7000, 7001], corpus[200:202])
+    jg.add([7000, 7001], corpus[200:202])
+    torch.testing.assert_close(tg._codes, flat._codes, rtol=0, atol=0)
+    kw = dict(k=5, rerank=rerank, precision=precision)
+    q = corpus[300:316]
+    _same_search(jg, tg, q, **kw)
+    ts, ti = tg.search(q, **kw)
+    fs, fi = flat.search(q, **kw)
+    np.testing.assert_array_equal(ti, fi)
+    np.testing.assert_array_equal(ts, fs)
+
+
+def test_sharded_pq_launches_k2_once_a_shard_and_merges_ties_in_order(
+        codecs, monkeypatch):
+    """Rows with the same codes in three shards rank in global-row order;
+    the ADC scorer runs once a shard a search, on the shard's codes."""
+    _, tc, corpus = codecs
+    _, tm = _meshes(4)
+    g = tpq.PQGallery(tc, capacity=16, device="cpu", mesh=tm)
+    flat = tpq.PQGallery(tc, capacity=16, device="cpu")
+    rows = corpus[20:36].copy()
+    rows[[9, 14]] = rows[3]
+    for x in (g, flat):
+        x.add(np.arange(16) + 100, rows)
+    seen = []
+    real = tpq.pq_adc_scores
+
+    def counted(lut, codes, precision="hilo"):
+        seen.append(codes.shape[0])
+        return real(lut, codes, precision)
+
+    monkeypatch.setattr(tpq, "pq_adc_scores", counted)
+    s, i = g.search(rows[3:4], k=3)
+    assert seen == [4, 4, 4, 4]
+    assert i.tolist() == [[103, 109, 114]] and s[0, 0] == s[0, 2]
+    fs, fi = flat.search(rows[3:4], k=3)
+    np.testing.assert_array_equal(i, fi)
+    np.testing.assert_array_equal(s, fs)
+
+
+def test_pq_snapshots_cross_between_mesh_and_no_mesh(codecs, tmp_path):
+    """A snapshot taken on a mesh holds the global codes: it equals the
+    unsharded gallery's file, restores unsharded, and an unsharded one
+    restores onto a mesh (capacity re-rounded), each searching as JAX's
+    restored on its mesh."""
+    jc, tc, corpus = codecs
+    jm, tm = _meshes()
+    meshed = tpq.PQGallery(tc, capacity=100, keep_exact=True, device="cpu",
+                           mesh=tm)
+    flat = tpq.PQGallery(tc, capacity=100, keep_exact=True, device="cpu")
+    for g in (meshed, flat):
+        g.add(np.arange(90), corpus[:90])
+        g.delete(17)
+    a, b = str(tmp_path / "m.npz"), str(tmp_path / "f.npz")
+    meshed.snapshot(a)
+    flat.snapshot(b)
+    with np.load(a) as za, np.load(b) as zb:
+        assert sorted(za.files) == sorted(zb.files)
+        for name in za.files:
+            if name != "capacity":
+                np.testing.assert_array_equal(za[name], zb[name])
+        assert int(za["capacity"]) == 104 and int(zb["capacity"]) == 100
+    unsharded = tpq.PQGallery.restore(a, device="cpu")
+    onto = tpq.PQGallery.restore(b, device="cpu", mesh=tm)
+    assert onto.capacity == 104 and unsharded.mesh is None
+    j_onto = jpq.PQGallery.restore(b, mesh=jm)
+    q = corpus[200:206]
+    for kw in (dict(k=5), dict(k=5, rerank=20, precision="hilo")):
+        _same_search(j_onto, onto, q, **kw)
+        _same_search(j_onto, unsharded, q, **kw)

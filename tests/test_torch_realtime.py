@@ -12,8 +12,9 @@
   outputs at the tolerances of ``tests/test_torch_bf16.py``.
 - Weight files that exist run through the graph executor (small exported
   stand-ins); an empty one fails as it does in the JAX app, with the same
-  exception type; ``--disagg`` above 0 raises, naming its ROADMAP item;
-  without a card ``run`` raises.
+  exception type; ``--disagg`` above 0 without a card raises (it splits
+  the CUDA cards unless given slots), and on one slot raises the JAX
+  app's message; without a card ``run`` raises.
 """
 import os
 
@@ -177,13 +178,23 @@ def test_annotate_and_drawing_pixel_equal_to_jax():
 
 
 def test_unported_options_raise_naming_their_items(tmp_path, monkeypatch):
-    """--disagg still raises; weight files that exist run as graphs; an
-    empty one raises what the JAX app raises."""
+    """--disagg splits the CUDA cards (none here) unless given slots, and
+    one slot is too few, as in the JAX app; weight files that exist run as
+    graphs; an empty one raises what the JAX app raises."""
     from scrfd_arcface_facerecognition_tpu_torch.models import graph_models
+    from scrfd_arcface_facerecognition_tpu_torch.parallel import (
+        device_slots)
     from torch_export import TorchIResNet, TorchSCRFD, export_onnx, seeded
 
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        trt.run(trt.parse_args(["--disagg", "2"]), device="cpu")
+    tiny = ["--det-weight", "det_500m.onnx", "--rec-weight",
+            "w600k_mbf.onnx", "--disagg", "1"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trt.run(trt.parse_args(tiny), device="cpu")
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="at least 2 devices"):
+        trt.run(trt.parse_args(tiny), device="cpu",
+                devices=device_slots("cpu", 1))
     det, rec = str(tmp_path / "det_10g.onnx"), str(tmp_path / "w600k_r50.onnx")
     export_onnx(seeded(TorchSCRFD(stem=8, blocks=(1, 1, 1, 1),
                                   planes=(8, 8, 16, 16), neck=8,

@@ -1251,3 +1251,83 @@ def test_det_phase_settings_match_the_clis_defaults_at_full_width():
                                                             (1080, 1920))
     lo, hi = loop["conf_ranks"]
     assert 0 < lo < hi
+
+
+def _parallel_phase_on_the_cpu(monkeypatch, k1_step=1, k2_step=1):
+    """Phase 20 at small sizes on 4 CPU slots: det_500m + w600k_mbf on 8
+    frames of 96 x 128, a 20,000-row dense gallery, and phase 7's gallery
+    stood in by a small AutoGallery's PQ tier (400 rows of 512); K1 and K2
+    counted where the wrappers would count them (``k1_step`` /
+    ``k2_step`` launches a call). ``realtime --disagg 1`` meets a machine
+    of one card (one CPU slot) in place of the card."""
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import (
+        AutoGallery, pq as tpq, pq_adc)
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.parallel import (
+        Slot, disagg)
+
+    rep, said = _no_card(monkeypatch, wa)
+    monkeypatch.setattr(chip_smoke, "MAIN", dict(
+        chip_smoke.MAIN, det="det_500m", rec="w600k_mbf"))
+    monkeypatch.setattr(chip_smoke, "PAR", dict(
+        slots=4, dense=(20_000, 6, 5), pq_capacity=1024, k=5,
+        auto_min_rows=64, dp=dict(frames=8, hw=(96, 128), max_num=2, gallery=8),
+        disagg=dict(batches=2)))
+    monkeypatch.setattr(disagg, "card_slots",
+                        lambda: [Slot(0, torch.device("cpu"))])
+    crops, scores = ops.warp_align_crops, tpq.pq_adc_scores
+
+    def counted_k1(*a, **k):
+        wa.launches += k1_step
+        return crops(*a, **k)
+
+    def counted_k2(*a, **k):
+        pq_adc.launches += k2_step
+        return scores(*a, **k)
+
+    monkeypatch.setattr(ops, "warp_align_crops", counted_k1)
+    monkeypatch.setattr(tpq, "pq_adc_scores", counted_k2)
+    rng = np.random.default_rng(0)
+    rows, _, _ = chip_smoke.identity_rows(rng, 400, 40, 512, 0.05)
+    ag = AutoGallery(vector_size=512, tier="pq", min_train_rows=64,
+                     pq_train_iters=2, device="cpu")
+    ag.add_batch(np.arange(400), rows)
+    gal = dict(pq=ag._pq, queries=rows[:6], rows=rows[:300],
+               ids=np.arange(300))
+    return rep, said, gal
+
+
+def test_parallel_phase_rehearsed_on_the_cpu(monkeypatch):
+    """Phase 20: the dense and PQ sharded galleries against their
+    unsharded counterparts, K2 once a shard a search, the snapshots
+    across the mesh, frame DP and both disaggregated placements against
+    the pipeline with K1 counted, the one-card realtime refusal, and the
+    times beside the single-device ones labelled for slots on one card."""
+    rep, said, gal = _parallel_phase_on_the_cpu(monkeypatch)
+    before = _tf32()
+    out = chip_smoke.phase_parallel(torch, rep, gal)
+    assert _tf32() == before
+    # two PQGallery searches over 4 shards; the AutoGallery on the mesh,
+    # restored unmeshed (1 shard) and restored back onto the mesh
+    assert out["k2"] == 2 * 4 + 4 + 1 + 4
+    assert out["k1"] > 0 and out["err1"] == 0.0 and out["err2"] == 0.0
+    text = "\n".join(said)
+    for start in ("phase 20 mesh: 4 slots on one card — not a scaling figure",
+                  "20a dense ShardedGallery", "20b sharded PQ",
+                  "K2 launched once a shard a search",
+                  "20b AutoGallery(tier='pq', mesh=)", "20c frame DP",
+                  "20d disagg", "shard_gallery=True (RowShards)",
+                  "shard_gallery=auto (dict)",
+                  "realtime --disagg 1 on one card raises",
+                  "20e per-call ms"):
+        assert start in text, start
+
+
+@pytest.mark.parametrize("k1_step,k2_step,match", [
+    (1, 2, "K2 launched 8 times"), (0, 1, "K1 was launched no time")])
+def test_parallel_phase_fails_on_a_wrong_launch_count(monkeypatch, k1_step,
+                                                      k2_step, match):
+    rep, _, gal = _parallel_phase_on_the_cpu(monkeypatch, k1_step, k2_step)
+    with pytest.raises(RuntimeError, match=match):
+        chip_smoke.phase_parallel(torch, rep, gal)
