@@ -274,9 +274,25 @@ non-zero exit if it fails:
    4 batches of 8 frames held as in (c), K1 counted; on one card
    ``realtime --disagg 1`` raises "needs at least 2 devices"; (e) every
    per-call time beside the single-device one;
-21. one JSON line of every kernel's numbers (K1's launches are those of
-   phases 4, 13, 14, 15, 16, 17, 18, 19 and 20; K2's those of phases 7,
-   17 and 20).
+21. the trainers' mesh (``TRAIN_MESH``) over phase 20's slots, a data
+   slot's forward in a thread of its own, BatchNorm over the global
+   batch: (a) in float64, 3 steps from one state, the mesh against the
+   card's one-device trainer, every tensor within 1e-12 + 1e-10 x max and
+   the losses within 1e-11 relative: w600k_mbf on a ('data', 'model')
+   mesh over 1001 classes (padded to a multiple of 'model'), full softmax
+   and Partial FC 0.1 (each trainer's own draw); det_500m at 640 on a
+   ('data',) mesh, one image a slot, their face counts unequal, n_pos
+   equal; (b) w600k_r50 at batch 128 over 600,000 classes, Partial FC
+   0.1, and det_10g at 640, batch 32, on the meshes: ms a step, images a
+   second, peak memory and the device's busy share, beside this run's
+   18b and 19b; (c) a w600k_mbf trained on the mesh, its checkpoint
+   through ``load_inference_variables`` held to the live state's
+   embeddings (cosine 0.9999) and served by two ``FacePipeline`` calls,
+   K1 counted and held to its plain version; (d) both training CLIs with
+   ``--synthetic 2 --slots 4``;
+22. one JSON line of every kernel's numbers (K1's launches are those of
+   phases 4, 13, 14, 15, 16, 17, 18, 19, 20 and 21; K2's those of phases
+   7, 17 and 20).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside it, the script exits non-zero and prints no
@@ -408,6 +424,22 @@ PAR = dict(slots=4, dense=(1_000_000, 80, 5), pq_capacity=2_000_000, k=5,
            auto_min_rows=4096,
            dp=dict(frames=8, hw=(1080, 1920), max_num=10, gallery=128),
            disagg=dict(batches=4))
+# phase 21: the trainers' mesh over phase 20's slots: (a) the mesh against
+# the card's one-device trainer in float64 (ArcFace on ('data', 'model')
+# with classes that do not split over 'model', full softmax and Partial FC;
+# the detector over 'data' on one image a slot, their face counts unequal);
+# (b) the full-width steps timed as 18b / 19b; (c) a mesh-trained
+# checkpoint through FacePipeline; (d) both CLIs on --slots
+TRAIN_MESH = dict(
+    cmp=dict(rec="w600k_mbf", batch=16, classes=1001, rate=0.1, steps=3,
+             det="det_500m", size=640, max_gt=8),
+    full=dict(rec="w600k_r50", batch=128, classes=600_000, rate=0.1,
+              det="det_10g", size=640, det_batch=32, max_gt=32,
+              det_batches=4, warm=3, timed=10),
+    serve=dict(rec="w600k_mbf", classes=64, batch=16, steps=3, crops=64,
+               frames=8, hw=(1080, 1920), calls=2),
+    cli=dict(steps=2, rec="w600k_mbf", batch=64, det="det_500m",
+             det_batch=4))
 TRAIN_DET = dict(
     cmp=dict(det="det_500m", size=640, batch=4, max_gt=8, steps=3),
     full=dict(det="det_10g", size=640, batch=32, max_gt=32, warm=3,
@@ -2535,7 +2567,7 @@ def device_busy(torch, fn):
            if e.device_type == torch.autograd.DeviceType.CUDA
            and not e.name.startswith("Command Buffer")
            and not getattr(e, "is_user_annotation", False)
-           and e.name not in DET_SPANS]
+           and not e.name.startswith(("scrfd_train.", "arcface_train."))]
     if not dev:
         return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
@@ -4349,6 +4381,30 @@ def run_cli(torch, module, args):
     return out.stdout.splitlines()
 
 
+def run_clis(torch, calls):
+    """``python -m <module> <args>`` for each (module, args) of ``calls``,
+    all at once, each in a child process: each one's standard output's
+    lines, in order. Every child has ended when this returns or fails."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, "-m", m] + list(a), cwd=repo,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for m, a in calls]
+    try:
+        out = []
+        for (module, _), p in zip(calls, procs):
+            stdout, stderr = p.communicate(timeout=600)
+            if p.returncode != 0:
+                fail(f"{module} exited {p.returncode}: "
+                     f"{stderr.strip()[-2000:]}")
+            out.append(stdout.splitlines())
+        return out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def said_after(lines, start):
     for line in lines:
         if start in line:
@@ -5367,6 +5423,415 @@ def phase_parallel(torch, rep, gal):
                 err2=pq["err"])
 
 
+# ---------------------------------------------------------------------
+# phase 21: the trainers' mesh
+#
+# One process drives every slot (parallel/, train/): a data slot's forward
+# runs in a thread of its own, the slots exchange BatchNorm's per-slot sums
+# (parallel/collectives.py), one backward from the global loss. On one
+# card the slots share cuda:0 (phase 20's), so the times are no scaling
+# figure.
+
+
+def arcface_meshes(torch, slots):
+    """The ArcFace trainer's ('data', 'model') mesh over ``slots`` (2 on
+    'model' where the slots allow it) and the detector's ('data',)."""
+    from scrfd_arcface_facerecognition_tpu_torch import parallel
+
+    tp = 2 if len(slots) % 2 == 0 else 1
+    return (parallel.make_mesh((len(slots) // tp, tp), ("data", "model"),
+                               devices=slots),
+            parallel.make_mesh((len(slots),), ("data",), devices=slots))
+
+
+def padded_parts(torch, parts, width, seed=21):
+    """One-device ArcFace parts with seeded pad columns (their momentum
+    zero) up to ``width`` classes."""
+    d, c = parts["head_w"].shape
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    pad = torch.randn((d, width - c), generator=gen,
+                      dtype=parts["head_w"].dtype) * 0.01
+    out = dict(parts, trace=dict(parts["trace"]))
+    out["head_w"] = torch.cat([parts["head_w"], pad], 1)
+    out["trace"]["head_w"] = torch.cat(
+        [parts["trace"]["head_w"], torch.zeros_like(pad)], 1)
+    return out
+
+
+def unpadded_parts(parts, classes):
+    """A meshed ArcFace state's parts cut to its ``classes`` real
+    classes."""
+    out = dict(parts, trace=dict(parts["trace"]))
+    out["head_w"] = parts["head_w"][:, :classes]
+    out["trace"]["head_w"] = parts["trace"]["head_w"][:, :classes]
+    return out
+
+
+def phase_mesh_vs_one(torch, rep, arc_mesh, det_mesh, label):
+    """21a: ``TRAIN_MESH["cmp"]`` in float64, the mesh against the card's
+    one-device trainer from one state: every tensor within
+    ``TOL_TRAIN["double"]`` after the first and the last step, the
+    losses within ``TOL_TRAIN["loss64"]``, n_pos equal."""
+    from scrfd_arcface_facerecognition_tpu_torch.models import build_arcface
+    from scrfd_arcface_facerecognition_tpu_torch.train import (
+        ArcFaceTrainer, state_parts, synthetic_detection_batch)
+
+    c = TRAIN_MESH["cmp"]
+    f64 = torch.float64
+    rng = np.random.default_rng(210)
+    images = torch.from_numpy(rng.normal(size=(c["batch"], 3, 112, 112))
+                              ).to(DEV)
+    labels = torch.from_numpy(rng.integers(0, c["classes"], c["batch"])
+                              ).to(DEV)
+    out, steps = {}, c["steps"]
+    for rate in (1.0, c["rate"]):
+        what = "full softmax" if rate == 1.0 else f"Partial FC {rate}"
+        kw = dict(num_classes=c["classes"], sample_rate=rate, dtype=f64)
+        one = ArcFaceTrainer(model=build_arcface(c["rec"]), device=DEV, **kw)
+        meshed = ArcFaceTrainer(model=build_arcface(c["rec"]),
+                                mesh=arc_mesh, **kw)
+        parts = state_parts(one.init_state(0))
+        t0 = time.perf_counter()
+        want, want_loss = train_run(torch, one, parts, images, labels, None,
+                                    steps)
+        t1 = time.perf_counter()
+        got, got_loss = train_run(torch, meshed, padded_parts(
+            torch, parts, meshed.padded_classes), images, labels, None,
+            steps)
+        t2 = time.perf_counter()
+        rel = max(abs(g - w) / abs(w) for g, w in zip(got_loss, want_loss))
+        if rel > TOL_TRAIN["loss64"]:
+            fail(f"21a ArcFace mesh vs one device, {what}: losses "
+                 f"{got_loss} against {want_loss}")
+        gaps = [worst_gaps(unpadded_parts(got[i], c["classes"]), want[i],
+                           f"21a ArcFace mesh vs one device, {what}, step "
+                           f"{i + 1}") for i in (0, steps - 1)]
+        rep.say(f"21a ArcFace mesh {dict(arc_mesh.shape)} ({label}) vs the "
+                f"card's one-device trainer, float64, {c['rec']} full "
+                f"width, batch {c['batch']}, {c['classes']} classes (padded "
+                f"to {meshed.padded_classes}), {what}: losses within "
+                f"{rel:.3g} relative over {steps} steps (tolerance "
+                f"{TOL_TRAIN['loss64']}); the worst tensor's share of the "
+                f"bound after 1 step: {said_gaps(gaps[0])}; after {steps}: "
+                f"{said_gaps(gaps[1])}; {steps} steps one device "
+                f"{t1 - t0:.1f} s, mesh {t2 - t1:.1f} s")
+        out[what] = dict(rel=rel, gaps=gaps)
+
+    n = det_mesh.shape["data"]
+    batch = None
+    for seed in range(211, 231):
+        arrays = synthetic_detection_batch(np.random.default_rng(seed), n,
+                                           (c["size"], c["size"]),
+                                           max_gt=c["max_gt"])
+        if n == 1 or len(set(arrays[3].sum(1).tolist())) > 1:
+            batch = arrays
+            break
+    if batch is None:
+        fail("21a: no seeded batch whose images hold unequal face counts")
+    faces = batch[3].sum(1).tolist()
+    nchw = torch.from_numpy(batch[0]).permute(0, 3, 1, 2).contiguous()
+    tensors = [nchw.double()] + [torch.from_numpy(a) for a in batch[1:]]
+    tensors[1], tensors[2] = tensors[1].double(), tensors[2].double()
+    one = det_trainer(torch, c["det"], c["size"], DEV, dtype=f64)
+    meshed = det_trainer(torch, c["det"], c["size"], None, dtype=f64,
+                         mesh=det_mesh)
+    parts = state_parts(one.init_state(0))
+    t0 = time.perf_counter()
+    want, want_loss, want_pos = det_run(torch, one, parts, tensors,
+                                        steps)
+    t1 = time.perf_counter()
+    got, got_loss, got_pos = det_run(torch, meshed, parts, tensors, steps)
+    t2 = time.perf_counter()
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got_loss, want_loss))
+    if rel > TOL_TRAIN["loss64"] or got_pos != want_pos:
+        fail(f"21a detector mesh vs one device: losses {got_loss} against "
+             f"{want_loss}, n_pos {got_pos} against {want_pos}")
+    gaps = [worst_gaps(got[i], want[i], f"21a detector mesh vs one device, "
+                       f"step {i + 1}") for i in (0, steps - 1)]
+    rep.say(f"21a detector mesh {dict(det_mesh.shape)} ({label}) vs the "
+            f"card's one-device trainer, float64, {c['det']} at "
+            f"{c['size']}x{c['size']}, one image a slot holding {faces} "
+            f"faces: losses within {rel:.3g} relative over {steps} steps, "
+            f"n_pos equal {got_pos}; the worst tensor's share of the bound "
+            f"after 1 step: {said_gaps(gaps[0])}; after {steps}: "
+            f"{said_gaps(gaps[1])}; {steps} steps one device "
+            f"{t1 - t0:.1f} s, mesh {t2 - t1:.1f} s")
+    out["det"] = dict(rel=rel, gaps=gaps, n_pos=got_pos)
+    return out
+
+
+def timed_steps(torch, step, n_warm, n_timed):
+    """``step(i)`` for i < n_warm + n_timed; (ms a timed step on the host's
+    clock, every card synchronized around the timed steps, peak device
+    memory in GiB over the cards, the steps' outputs)."""
+    cards = range(max(1, torch.cuda.device_count()))
+    sync_all(torch)
+    torch.cuda.empty_cache()
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    outs = [step(i) for i in range(n_warm)]
+    sync_all(torch)
+    t = time.perf_counter()
+    outs += [step(n_warm + i) for i in range(n_timed)]
+    sync_all(torch)
+    ms = (time.perf_counter() - t) * 1e3 / n_timed
+    peak = max(torch.cuda.max_memory_allocated(d) for d in cards) / 2 ** 30
+    return ms, peak, outs
+
+
+def host_split(torch, fn, trainer, prefix):
+    """fn() (one meshed step) under the CPU profiler: the host ms of each
+    of the trainer's spans (``<prefix>.forward_loss``, ``.backward``,
+    ``.update``), and of the forward's barrier waits, the mean over the
+    data slots, with the step's exchange count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync_all(torch)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        sync_all(torch)
+    spans = {}
+    for e in prof.events():
+        if e.name.startswith(prefix + "."):
+            key = e.name.split(".", 1)[1]
+            spans[key] = spans.get(key, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    group = trainer._data.last_group
+    spans["barrier waits"] = 1e3 * sum(group.waited_s) / group.size
+    return spans, group.exchanges
+
+
+def split_said(spans, exchanges):
+    return (", ".join(f"{k} {v:.1f}" for k, v in spans.items())
+            + f" (host ms; {exchanges} exchanges a step)")
+
+
+def phase_mesh_full(torch, rep, arc_mesh, det_mesh, label, ref_ms):
+    """21b: ``TRAIN_MESH["full"]`` on the meshes: ms a step, images a
+    second, peak device memory, the device's busy share over one step;
+    beside this run's one-device 18b and 19b."""
+    from scrfd_arcface_facerecognition_tpu_torch.models import build_arcface
+    from scrfd_arcface_facerecognition_tpu_torch.train import ArcFaceTrainer
+
+    c = TRAIN_MESH["full"]
+    out = {}
+    trainer = ArcFaceTrainer(model=build_arcface(c["rec"]),
+                             num_classes=c["classes"], sample_rate=c["rate"],
+                             mesh=arc_mesh)
+    state = trainer.init_state(0)
+    gen = torch.Generator(device="cpu").manual_seed(212)
+    n = c["warm"] + c["timed"]
+    batches = [(torch.randn((c["batch"], 3, 112, 112), generator=gen)
+                .to(DEV), torch.randint(0, c["classes"], (c["batch"],),
+                                        generator=gen).to(DEV))
+               for _ in range(n + 1)]
+    floor = math.log(trainer.num_sample) / 2
+
+    def arc_step(i):
+        nonlocal state
+        state, loss = trainer.train_step(state, *batches[i])
+        return loss
+
+    ms, peak, losses = timed_steps(torch, arc_step, c["warm"], c["timed"])
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or min(losses) < floor:
+        fail(f"21b ArcFace mesh: losses {losses} (each must be finite and "
+             f"above ln({trainer.num_sample}) / 2 = {floor:.3f})")
+    busy = device_busy(torch, lambda: arc_step(n))
+    split = host_split(torch, lambda: arc_step(n), trainer, "arcface_train")
+    out["arcface"] = dict(ms=ms, ips=c["batch"] * 1e3 / ms, peak=peak,
+                          busy=busy, split=split)
+    rep.say(f"21b ArcFace mesh {dict(arc_mesh.shape)} ({label}): "
+            f"{c['rec']} full width, batch {c['batch']}, {c['classes']} "
+            f"classes, Partial FC {c['rate']}, f32 (TF32 convs): {ms:.3f} ms "
+            f"a step (host clock, every card synchronized, mean of "
+            f"{c['timed']} after {c['warm']}), "
+            f"{c['batch'] * 1e3 / ms:.1f} images a second, peak device "
+            f"memory {peak:.2f} GiB; losses {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}; one step under torch.profiler: "
+            + busy_said(busy) + "; one step's host time by span: "
+            + split_said(*split) + f"; the one-device step of 18b in this "
+            f"run {ref_ms['arcface']:.3f} ms")
+    del trainer, state, batches
+    trainer = det_trainer(torch, c["det"], c["size"], None, mesh=det_mesh)
+    state = trainer.init_state(0)
+    rng = np.random.default_rng(213)
+    dc = dict(batch=c["det_batch"], size=c["size"], max_gt=c["max_gt"])
+    made = [[t.to(DEV) for t in det_batch(torch, rng, dc)]
+            for _ in range(c["det_batches"])]
+
+    def det_step(i):
+        nonlocal state
+        state, loss, m = trainer.train_step(state, *made[i % len(made)])
+        return float(loss), int(m["n_pos"])
+
+    ms, peak, res = timed_steps(torch, det_step, c["warm"], c["timed"])
+    if not all(np.isfinite(l) and p > 0 for l, p in res):
+        fail(f"21b detector mesh: (loss, n_pos) {res}")
+    busy = device_busy(torch, lambda: det_step(0))
+    split = host_split(torch, lambda: det_step(0), trainer, "scrfd_train")
+    out["det"] = dict(ms=ms, ips=c["det_batch"] * 1e3 / ms, peak=peak,
+                      busy=busy, split=split)
+    rep.say(f"21b detector mesh {dict(det_mesh.shape)} ({label}): "
+            f"{c['det']} at {c['size']}x{c['size']}, batch {c['det_batch']}, "
+            f"max_gt {c['max_gt']}, f32 (TF32 convs): {ms:.3f} ms a step "
+            f"(host clock, every card synchronized, mean of {c['timed']} "
+            f"after {c['warm']}; {c['det_batches']} synthetic batches in "
+            f"turn), {c['det_batch'] * 1e3 / ms:.1f} images a second, peak "
+            f"device memory {peak:.2f} GiB; losses {res[0][0]:.4f} -> "
+            f"{res[-1][0]:.4f}; one step under torch.profiler: "
+            + busy_said(busy) + "; one step's host time by span: "
+            + split_said(*split) + f"; the one-device step of 19b in this "
+            f"run {ref_ms['det']:.3f} ms")
+    return out
+
+
+def phase_mesh_serve(torch, rep, arc_mesh, label):
+    """21c: ``TRAIN_MESH["serve"]``: a w600k_mbf trained on the mesh, its
+    checkpoint read by ``load_inference_variables``, held to the live
+    state's embeddings (``TOL_TRAIN["cos"]``), then served by two
+    ``FacePipeline`` calls with phase 11's det_10g stand-in; K1 counted
+    and held to its plain version."""
+    import shutil
+
+    from scrfd_arcface_facerecognition_tpu_torch import FacePipeline
+    from scrfd_arcface_facerecognition_tpu_torch.models import (
+        ARCFACE_CONFIGS, build_arcface, load_inference_variables)
+    from scrfd_arcface_facerecognition_tpu_torch.models.weights import (
+        variables_from_module)
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.pipeline import Embedder
+    from scrfd_arcface_facerecognition_tpu_torch.train import ArcFaceTrainer
+
+    c = TRAIN_MESH["serve"]
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase21")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    trainer = ArcFaceTrainer(model=build_arcface(c["rec"]),
+                             num_classes=c["classes"], learning_rate=0.1,
+                             mesh=arc_mesh)
+    state = trainer.init_state(0)
+    rng = np.random.default_rng(214)
+    for _ in range(c["steps"]):
+        images = torch.from_numpy(rng.normal(
+            size=(c["batch"], 3, 112, 112)).astype(np.float32)).to(DEV)
+        labels = torch.from_numpy(rng.integers(0, c["classes"],
+                                               c["batch"])).to(DEV)
+        state, loss = trainer.train_step(state, images, labels)
+    path = os.path.join(out_dir, f"step_{state.step}.pt")
+    trainer.save_checkpoint(state, path)
+    cfg = ARCFACE_CONFIGS[c["rec"]]
+    served = Embedder(config=cfg, variables=load_inference_variables(path),
+                      device=DEV)
+    live = Embedder(config=cfg, variables=variables_from_module(
+        state.backbone), device=DEV)
+    crops = rng.integers(0, 255, (c["crops"], 112, 112, 3), dtype=np.uint8)
+    with full_f32(torch):
+        cos = torch.nn.functional.cosine_similarity(
+            torch.from_numpy(served.get_feat(crops)),
+            torch.from_numpy(live.get_feat(crops)))
+    if float(cos.min()) < TOL_TRAIN["cos"]:
+        fail(f"21c the mesh-trained checkpoint embeds at cosine "
+             f"{float(cos.min())} to its live state, below "
+             f"{TOL_TRAIN['cos']}")
+    s = STANDIN
+    det, _ = standin_parts(torch, torch.float32, conf_thres=s["conf"],
+                           pre_nms=s["pre_nms"], max_det=s["max_det"])
+    pipe = FacePipeline(detector=det, embedder=served,
+                        gallery_capacity=s["gallery"], device=DEV)
+    pipe.set_gallery(rng.normal(size=(s["gallery"], 512)).astype(np.float32),
+                     [f"p{i}" for i in range(s["gallery"])])
+    nb, (h, w) = c["frames"], c["hw"]
+    frames = torch.from_numpy(rng.integers(0, 255, (nb, h, w, 3),
+                                           dtype=np.uint8)).to(DEV)
+    pipe(frames, max_num=s["max_num"])                # warm-up
+    sync_all(torch)
+    wa.launches = 0
+    with k1_capture() as calls:
+        for _ in range(c["calls"]):
+            o = pipe(frames, max_num=s["max_num"])
+        sync_all(torch)
+    launches = wa.launches
+    if launches == 0:
+        fail("21c mesh-trained -> serve: the pipeline launched K1 no time")
+    faces = int(o.valid.sum())
+    ev = o.embeddings[o.valid]
+    if faces == 0 or not bool(torch.isfinite(ev).all()) or not bool(
+            ((ev.norm(dim=-1) - 1).abs() < 1e-3).all()):
+        fail(f"21c mesh-trained -> serve: {faces} faces, embeddings not "
+             f"finite and unit-norm")
+    err, summary = k1_on_path(torch, wa, calls)
+    if err > TOL_U8:
+        fail(f"21c mesh-trained -> serve: K1 vs plain {err} u8")
+    rep.say(f"21c mesh-trained -> serve ({label}): {c['rec']} trained "
+            f"{c['steps']} steps on the mesh {dict(arc_mesh.shape)} over "
+            f"{c['classes']} classes -> {os.path.basename(path)}; "
+            f"load_inference_variables(checkpoint) through Embedder against "
+            f"the live state at f32 (TF32 off) on {c['crops']} crops: cosine "
+            f"min {float(cos.min()):.7f} (tolerance {TOL_TRAIN['cos']}); "
+            f"FacePipeline with the det_10g stand-in on {nb} seeded "
+            f"{h}x{w} frames: {faces} faces, embeddings finite and "
+            f"unit-norm; K1 launches {launches} over {c['calls']} calls; K1 "
+            f"vs plain on {summary}: {err:.6g} u8")
+    return dict(launches=launches, err=err, cos=float(cos.min()))
+
+
+def phase_mesh_clis(torch, rep):
+    """21d: ``tools.train_arcface`` and ``tools.train_scrfd`` with
+    ``--synthetic N --slots 4``, in two child processes at once."""
+    c = TRAIN_MESH["cli"]
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase21")
+    runs = (("train_arcface", ["--variant", c["rec"], "--batch",
+                               str(c["batch"]), "--model-shards", "2"],
+             "mesh=data:2xmodel:2"),
+            ("train_scrfd", ["--variant", c["det"], "--batch",
+                             str(c["det_batch"])], "mesh=data:4"))
+    t0 = time.perf_counter()
+    outs = run_clis(torch, [
+        (f"scrfd_arcface_facerecognition_tpu_torch.tools.{module}",
+         args + ["--synthetic", str(c["steps"]), "--slots", "4", "--device",
+                 DEV, "--out", os.path.join(out_dir, module)])
+        for module, args, _ in runs])
+    took = time.perf_counter() - t0
+    said = []
+    for (module, args, layout), lines in zip(runs, outs):
+        ckpt = said_after(lines, "saved ")
+        if not any(layout in line for line in lines):
+            fail(f"21d {module}: no {layout!r} in {lines}")
+        losses = [float(line.split("loss", 1)[1].split()[0])
+                  for line in lines if line.startswith("step ")]
+        if not losses or not all(np.isfinite(losses)):
+            fail(f"21d {module}: losses {losses}")
+        said.append(f"{module} {' '.join(args)} --synthetic {c['steps']} "
+                    f"--slots 4 ({layout}) -> {os.path.basename(ckpt)}, "
+                    f"losses {losses}")
+    rep.say(f"21d the CLIs, two child processes at once, in {took:.1f} s "
+            "(start-up included): " + "; ".join(said))
+
+
+def phase_train_mesh(torch, rep, ref_ms):
+    """21: (a) the meshes against the one-device trainers in float64, (b)
+    the full-width steps, (c) train -> checkpoint -> serve, (d) the
+    CLIs."""
+    t0 = time.perf_counter()
+    slots, label = parallel_slots(torch)
+    arc_mesh, det_mesh = arcface_meshes(torch, slots)
+    with full_f32(torch):
+        cmp = phase_mesh_vs_one(torch, rep, arc_mesh, det_mesh, label)
+    t1 = time.perf_counter()
+    full = phase_mesh_full(torch, rep, arc_mesh, det_mesh, label, ref_ms)
+    t2 = time.perf_counter()
+    serve = phase_mesh_serve(torch, rep, arc_mesh, label)
+    t3 = time.perf_counter()
+    phase_mesh_clis(torch, rep)
+    rep.say(f"phase 21 took {time.perf_counter() - t0:.1f} s: (a) "
+            f"{t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}, (d) "
+            f"{time.perf_counter() - t3:.1f}")
+    return dict(cmp=cmp, full=full, **serve)
+
+
 def main():
     import torch
 
@@ -5460,7 +5925,11 @@ def main():
     # 20. multi-device serving
     par = phase_parallel(torch, rep, gal)
 
-    # 21. kernels
+    # 21. the trainers' mesh
+    tm = phase_train_mesh(torch, rep, dict(arcface=tr["full"][False]["ms"],
+                                           det=dt["full"]["ms"]))
+
+    # the kernels
     t2 = gal["times"]
     kernels = [{
         "name": wa.NAME, "route": "cuda",
@@ -5468,10 +5937,11 @@ def main():
         "replaces": "scrfd_arcface_facerecognition_tpu/ops/pallas_warp.py:430",
         "launches": launches + bf["launches"] + rt["launches"]
         + ox["launches"] + cam["launches"] + web["k1"] + tr["launches"]
-        + dt["launches"] + par["k1"],
+        + dt["launches"] + par["k1"] + tm["launches"],
         "max_abs_err": max(err3, err4, sp["err1"], fa["err"], eng["err"],
                            bf["err"], rt["err"], ox["err"], cam["err"],
-                           web["err1"], tr["err"], dt["err"], par["err1"]),
+                           web["err1"], tr["err"], dt["err"], par["err1"],
+                           tm["err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     }, {

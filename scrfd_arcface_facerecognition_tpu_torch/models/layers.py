@@ -19,6 +19,8 @@ from torch import nn
 import torch.nn.functional as F
 from torch.utils import checkpoint as _checkpoint
 
+from ..parallel import collectives
+
 
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:
     """``x`` in float32, or as it is when wider (float64)."""
@@ -71,12 +73,47 @@ class _F32BatchNorm:
     running ones as Flax does: ``(1 - momentum) * running + momentum *
     batch`` with the biased batch variance (PyTorch's own update takes the
     unbiased one, n / (n - 1) larger). ``hold_stats`` leaves them alone
-    while ``remat_call`` recomputes the forward in the backward pass."""
+    while ``remat_call`` recomputes the forward in the backward pass.
+
+    In a meshed training step (a thread of ``parallel.collectives``' slot
+    group) the batch is the global one, as under GSPMD: the statistics are
+    the mean and the biased variance over every slot's N * H * W, two
+    exchanges of per-slot sums (the mean first, then the centred sum of
+    squares), and the slot of rank 0 moves the running statistics once."""
 
     hold_stats = False
 
+    def _global_batch(self, x: torch.Tensor, ctx) -> torch.Tensor:
+        """Training mode over the step's global batch, in explicit ops
+        (``F.batch_norm``'s backward assumes local statistics); Flax's
+        ``_normalize``: ``(x - mean) * (scale * rsqrt(var + eps)) +
+        bias``."""
+        xf = at_least_f32(x)
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        n = xf.numel() // xf.shape[1] * ctx.size
+        mean = ctx.all_sum(xf.sum(dims)) / n
+        d = xf - mean.reshape(shape)
+        var = ctx.all_sum((d * d).sum(dims)) / n
+        if ctx.leader and not self.hold_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(
+                    (1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var + m * var)
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight
+        y = d * mul.reshape(shape)
+        if self.bias is not None:
+            y = y + self.bias.reshape(shape)
+        return y.to(x.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
+            ctx = collectives.current()
+            if ctx is not None:
+                return self._global_batch(x, ctx)
             xf = at_least_f32(x)
             if not self.hold_stats:
                 dims = [0] + list(range(2, x.dim()))
@@ -115,14 +152,25 @@ def _stats_held(block: nn.Module) -> Iterator[None]:
             m.hold_stats = False
 
 
+@contextlib.contextmanager
+def _recomputing(block: nn.Module, replay) -> Iterator[None]:
+    with replay, _stats_held(block):
+        yield
+
+
 def remat_call(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """``block(x)`` with its activations recomputed in the backward pass
     instead of kept (``jax.checkpoint``); the recomputation does not move
     BatchNorm's running statistics a second time, so they move once a
-    step with remat as without it."""
-    return _checkpoint.checkpoint(
-        block, x, use_reentrant=False,
-        context_fn=lambda: (contextlib.nullcontext(), _stats_held(block)))
+    step with remat as without it. In a meshed step it does not exchange
+    them a second time either: it takes the sums the forward exchanged
+    (``collectives.remat_contexts``)."""
+    def contexts():
+        record, replay = collectives.remat_contexts()
+        return record, _recomputing(block, replay)
+
+    return _checkpoint.checkpoint(block, x, use_reentrant=False,
+                                  context_fn=contexts)
 
 
 class GroupNorm(nn.GroupNorm):

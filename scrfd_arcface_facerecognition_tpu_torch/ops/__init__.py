@@ -11,9 +11,10 @@ from .resize import (resize_bilinear, resize_bilinear_u8_exact, letterbox,
 from .similarity import (l2_normalize, compute_similarity, cosine_matrix,
                          top_k_matches)
 from .umeyama import umeyama_similarity, estimate_norm, ARCFACE_DST
-from .warp import invert_affine, warp_affine_flat, warp_affine_inv_flat
-from .nms import (iou_matrix_legacy, nms_mask_blocked, compact_by_mask,
-                  select_top_faces, stable_top_k)
+from .warp import (invert_affine, norm_crop, warp_affine, warp_affine_batch,
+                   warp_affine_flat, warp_affine_inv_flat)
+from .nms import (iou_matrix_legacy, nms_mask, nms_mask_blocked,
+                  compact_by_mask, select_top_faces, stable_top_k)
 from .warp_align import warp_align_crops, warp_align_plain
 
 __all__ = [
@@ -25,8 +26,9 @@ __all__ = [
     "letterbox_matrices", "letterbox_dynamic",
     "l2_normalize", "compute_similarity", "cosine_matrix", "top_k_matches",
     "umeyama_similarity", "estimate_norm", "ARCFACE_DST",
-    "invert_affine", "warp_affine_flat", "warp_affine_inv_flat",
-    "iou_matrix_legacy", "nms_mask_blocked", "compact_by_mask",
+    "invert_affine", "warp_affine", "warp_affine_batch", "norm_crop",
+    "warp_affine_flat", "warp_affine_inv_flat",
+    "iou_matrix_legacy", "nms_mask", "nms_mask_blocked", "compact_by_mask",
     "select_top_faces", "stable_top_k",
     "warp_align_crops", "warp_align_plain",
 ]

@@ -37,6 +37,24 @@ def iou_matrix_legacy(boxes: torch.Tensor) -> torch.Tensor:
     return inter / (areas[..., :, None] + areas[..., None, :] - inter)
 
 
+def nms_mask(boxes: torch.Tensor, iou_thres: float,
+             valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Greedy NMS over score-descending boxes (..., K, 4) -> keep mask
+    (..., K), one box at a time: the sequential form that
+    ``nms_mask_blocked`` equals. Invalid slots are never kept and never
+    suppress others."""
+    k = boxes.shape[-2]
+    iou = iou_matrix_legacy(boxes)
+    idx = torch.arange(k, device=boxes.device)
+    keep = (torch.ones(boxes.shape[:-1], dtype=torch.bool,
+                       device=boxes.device) if valid is None
+            else valid.clone())
+    for i in range(k):
+        keep = keep & ~((iou[..., i, :] > iou_thres) & (idx > i)
+                        & keep[..., i:i + 1])
+    return keep
+
+
 def nms_mask_blocked(boxes: torch.Tensor, iou_thres: float,
                      valid: Optional[torch.Tensor] = None,
                      block: int = 32) -> torch.Tensor:

@@ -6,7 +6,9 @@ src = M^-1 @ (x, y, 1) bilinearly, zero outside the source image.
 
 ``warp_affine_inv_flat`` is the plain PyTorch form of the face-crop warp;
 the hand-written kernel (``ops/warp_align.py``) computes the same
-function, and on the CPU its wrapper runs this code.
+function, and on the CPU its wrapper runs this code. ``warp_affine``,
+``warp_affine_batch`` and ``norm_crop`` are the one-frame forms of the
+JAX package's public API (the reference's ``norm_crop_image``).
 """
 from __future__ import annotations
 
@@ -84,6 +86,36 @@ def warp_affine_inv_flat(frames: torch.Tensor, minv: torch.Tensor,
             + tap(y0, x0 + 1, fx * (1 - fy))
             + tap(y0 + 1, x0, (1 - fx) * fy)
             + tap(y0 + 1, x0 + 1, fx * fy))
+
+
+def warp_affine(image: torch.Tensor, m: torch.Tensor,
+                out_hw: Tuple[int, int] = (112, 112)) -> torch.Tensor:
+    """Warp an (H, W, C) image by the src -> dst matrix m (2, 3) into (h,
+    w, C) float32: cv2.warpAffine's inverse mapping, INTER_LINEAR, zero
+    border."""
+    return warp_affine_batch(image, m[None], out_hw)[0]
+
+
+def warp_affine_batch(image: torch.Tensor, ms: torch.Tensor,
+                      out_hw: Tuple[int, int] = (112, 112)) -> torch.Tensor:
+    """F crops out of one frame: (H, W, C), (F, 2, 3) -> (F, h, w, C)."""
+    idx = torch.zeros(ms.shape[0], dtype=torch.int64, device=image.device)
+    return warp_affine_flat(image[None], ms, idx, out_hw)
+
+
+def norm_crop(image: torch.Tensor, landmarks: torch.Tensor,
+              image_size: int = 112) -> torch.Tensor:
+    """Align and crop by 5 landmarks (the reference's ``norm_crop_image``).
+
+    image (H, W, C); landmarks (5, 2) or (F, 5, 2). Returns (image_size,
+    image_size, C) or (F, image_size, image_size, C) float32."""
+    from .umeyama import estimate_norm
+
+    m = estimate_norm(landmarks, image_size)
+    size = (image_size, image_size)
+    if landmarks.dim() == 2:
+        return warp_affine(image, m, size)
+    return warp_affine_batch(image, m, size)
 
 
 def warp_affine_flat(frames: torch.Tensor, ms: torch.Tensor,

@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``parallel/``. The reference has no
 distributed execution; its scaling axes are the frame batch B and the
-gallery size G. Here those split over a :class:`mesh.Mesh` of slots:
+gallery size G, and the trainers' batch and class count. Here those split
+over a :class:`mesh.Mesh` of slots:
 
 - frame DP: batches split on a 'data' axis (``shard_frames``); each slot
   runs the whole detect -> embed -> match path on its part with its
@@ -14,6 +15,12 @@ gallery size G. Here those split over a :class:`mesh.Mesh` of slots:
 - stage disaggregation: detector weights on one group of slots, embedder
   and gallery on another, batches pipelined through both
   (``DisaggPipeline``);
+- the trainers' mesh (``train/``): the ArcFace step DP x TP over
+  ('data', 'model') with the class matrix in column shards, the SCRFD
+  step DP over ('data',); the forward runs one thread a data slot, which
+  meet at exchanges (``collectives``) where the step needs a value of the
+  whole batch (BatchNorm's statistics), then one backward from the global
+  loss;
 - the copies between devices are ``.to(device)`` (NVLink between cards);
   ``initialize_distributed`` joins a ``torch.distributed`` group where a
   deployment spans processes.
@@ -28,7 +35,7 @@ _EXPORTS = {
     "make_mesh": ".mesh", "make_hybrid_mesh": ".mesh",
     "initialize_distributed": ".mesh", "local_device_count": ".mesh",
     "device_slots": ".mesh", "card_slots": ".mesh", "Mesh": ".mesh",
-    "Slot": ".mesh",
+    "Slot": ".mesh", "training_slots": ".mesh",
     "ShardedGallery": ".sharded_gallery", "sharded_top_k": ".sharded_gallery",
     "shard_frames": ".data_parallel", "replicate": ".data_parallel",
     "ShardedFrames": ".data_parallel",

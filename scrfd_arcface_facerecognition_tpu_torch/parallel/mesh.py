@@ -62,6 +62,20 @@ def device_slots(device, n: int) -> List[Slot]:
     return [Slot(i, dev) for i in range(n)]
 
 
+def training_slots(device: str = "cuda",
+                   slots: Optional[int] = None) -> List[Slot]:
+    """The slots a training tool meshes over: ``slots`` slots that share
+    ``device`` when given (a one-card machine's, or the CPU's, stand-in
+    for several devices); else every CUDA card for ``"cuda"``, and one
+    slot for any other device."""
+    if slots:
+        return device_slots(device, slots)
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return card_slots()
+    return [Slot(0, _indexed(dev))]
+
+
 def local_device_count() -> int:
     """CUDA cards attached to this process (0 without one)."""
     return torch.cuda.device_count() if torch.cuda.is_available() else 0

@@ -1,4 +1,4 @@
-"""ArcFace embedder training from the command line (one card).
+"""ArcFace embedder training from the command line, meshed over the cards.
 
     python -m scrfd_arcface_facerecognition_tpu_torch.tools.train_arcface \
         --data /data/faces --variant w600k_mbf --batch 64 --epochs 2 \
@@ -12,8 +12,13 @@ caller may replace it). ``--sample-rate`` < 1 turns on Partial FC
 ``--synthetic N`` trains N steps on random images over ``--num-classes``
 identities. The checkpoint is a ``torch.save`` file (``<out>/step_<N>.pt``)
 that ``models.checkpoints.load_inference_variables`` and
-``tools.export_onnx --checkpoint`` read. Runs on the card unless
-``--device cpu``.
+``tools.export_onnx --checkpoint`` read.
+
+The trainer meshes over every card (``--device cuda``, the default) or
+over ``--slots N`` slots that share ``--device`` (one card's, or the
+CPU's with ``--device cpu``): ``--model-shards`` of them split the class
+matrix ('model'), the rest of the factor splits the batch ('data'), as
+the JAX tool's mesh. One slot is the one-device trainer.
 """
 import argparse
 import os
@@ -105,10 +110,35 @@ def parse_args(argv=None):
                     help="class count for --synthetic")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", type=str, default="cuda")
+    ap.add_argument("--model-shards", type=int, default=1,
+                    help="'model' mesh-axis size for the class matrix; "
+                         "slots / model-shards becomes the 'data' axis")
+    ap.add_argument("--slots", type=int, default=None,
+                    help="mesh over N slots that share --device (default: "
+                         "one a card for cuda, one for any other device)")
     args = ap.parse_args(argv)
     if not args.synthetic and not args.data:
         ap.error("--data or --synthetic required")
     return args
+
+
+def training_mesh(device: str, slots, model_shards: int = 1,
+                  axis_names=("data", "model")):
+    """The tools' mesh: (data, model_shards) over ``parallel.
+    training_slots(device, slots)``, or None for one slot (the one-device
+    trainer); raises SystemExit when ``model_shards`` does not divide the
+    slots."""
+    from ..parallel import make_mesh, training_slots
+
+    found = training_slots(device, slots)
+    tp = max(1, model_shards)
+    if len(found) % tp:
+        raise SystemExit(f"--model-shards {tp} does not divide the "
+                         f"{len(found)} slots")
+    if len(found) == 1:
+        return None
+    sizes = (len(found) // tp, tp)[:len(axis_names)]
+    return make_mesh(sizes, axis_names, devices=found)
 
 
 def main(argv=None) -> str:
@@ -125,6 +155,7 @@ def main(argv=None) -> str:
     else:
         num_classes = args.num_classes
     model = build_arcface(args.variant)
+    mesh = training_mesh(args.device, args.slots, args.model_shards)
     trainer = ArcFaceTrainer(model=model, num_classes=num_classes,
                              emb_dim=model.config.emb_dim,
                              margin=args.margin, scale=args.scale,
@@ -133,9 +164,12 @@ def main(argv=None) -> str:
                              warmup_steps=args.warmup_steps,
                              decay_steps=args.decay_steps,
                              lr_decay=args.lr_decay, remat=args.remat,
-                             device=args.device)
+                             device=None if mesh else args.device,
+                             mesh=mesh)
     state = trainer.init_state(0)
-    print(f"device={trainer.device} variant={args.variant} "
+    layout = ("" if mesh is None else " mesh=" + "x".join(
+        f"{k}:{v}" for k, v in mesh.shape.items()))
+    print(f"device={trainer.device}{layout} variant={args.variant} "
           f"classes={num_classes} sample={trainer.num_sample}"
           f"{'' if args.sample_rate >= 1 else ' (partial FC)'}", flush=True)
     t0 = time.time()

@@ -1,4 +1,4 @@
-"""SCRFD detector training from the command line (one card).
+"""SCRFD detector training from the command line, meshed over the cards.
 
     python -m scrfd_arcface_facerecognition_tpu_torch.tools.train_scrfd \
         --labels /data/wider/train/label.txt \
@@ -14,7 +14,12 @@ steps on synthetic batches (random images, plausible face boxes). The
 checkpoint is a ``torch.save`` file of the detector's variables
 (``<out>/step_<N>.pt``) that ``models.checkpoints.load_inference_variables``
 and ``tools.export_onnx --checkpoint`` read. ``--val-labels`` reports
-AP@0.5 of the trained detector. Runs on the card unless ``--device cpu``.
+AP@0.5 of the trained detector.
+
+The batch splits over every card (``--device cuda``, the default), as the
+JAX tool's 'data' mesh, or over ``--slots N`` slots that share
+``--device`` (one card's, or the CPU's with ``--device cpu``). One slot
+is the one-device trainer.
 """
 import argparse
 import os
@@ -47,6 +52,9 @@ def parse_args(argv=None):
                     help="train on N synthetic batches instead of a dataset")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", type=str, default="cuda")
+    ap.add_argument("--slots", type=int, default=None,
+                    help="mesh over N slots that share --device (default: "
+                         "one a card for cuda, one for any other device)")
     args = ap.parse_args(argv)
     if not args.synthetic and not args.labels:
         ap.error("--labels or --synthetic required")
@@ -63,16 +71,21 @@ def main(argv=None) -> str:
                          batches_from_annotations, parse_wider_annotations,
                          synthetic_detection_batch)
 
+    from .train_arcface import training_mesh
+
     size = (args.input_size, args.input_size)
+    mesh = training_mesh(args.device, args.slots, axis_names=("data",))
     trainer = SCRFDTrainer(model=build_scrfd(args.variant),
                            loss_cfg=SCRFDLossConfig(input_size=size),
                            learning_rate=args.lr,
                            warmup_steps=args.warmup_steps,
                            decay_steps=args.decay_steps,
-                           lr_decay=args.lr_decay, device=args.device)
+                           lr_decay=args.lr_decay,
+                           device=None if mesh else args.device, mesh=mesh)
     state = trainer.init_state(0)
-    print(f"device={trainer.device} variant={args.variant} input={size}",
-          flush=True)
+    layout = "" if mesh is None else f" mesh=data:{mesh.shape['data']}"
+    print(f"device={trainer.device}{layout} variant={args.variant} "
+          f"input={size}", flush=True)
     t0 = time.time()
 
     def run(images, gt_boxes, gt_kps, gt_valid, gt_kps_valid=None):

@@ -1,4 +1,4 @@
-"""Training on one card, both halves of the model stack:
+"""Training on one card or over a mesh, both halves of the model stack:
 
 - the ArcFace embedder (arcface_train.py): margin softmax with Partial FC,
   BN statistics as Flax moves them, per-block remat;
@@ -8,8 +8,11 @@
   letterboxed static-shape batches, VOC AP).
 
 Both update with optax's clipped SGD with momentum, written out once
-(state.py), on the learning-rate schedules of schedules.py. The
-multi-device trainers are not ported yet."""
+(state.py), on the learning-rate schedules of schedules.py. Both take a
+``mesh=`` (``parallel.make_mesh``): the ArcFace step DP x TP over
+('data', 'model'), the class matrix in column shards; the SCRFD step DP
+over ('data',); a data slot's forward in a thread of its own, BatchNorm
+over the global batch (state.py ``DataSlots``, ``parallel/collectives.py``)."""
 
 from .arcface_train import (
     ArcFaceTrainer, TrainState, arcface_margin_logits, evaluate_embedder,

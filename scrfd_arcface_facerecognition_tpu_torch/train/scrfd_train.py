@@ -1,9 +1,8 @@
-"""SCRFD detector training on one card: ATSS assignment and the Quality
-Focal / DIoU / landmark smooth-L1 losses.
+"""SCRFD detector training, on one card or data-parallel over a mesh: ATSS
+assignment and the Quality Focal / DIoU / landmark smooth-L1 losses.
 
-The port of the JAX package's ``train/scrfd_train.py`` without its mesh
-(the data-parallel batch waits for the multi-device slice). It follows
-the SCRFD paper's recipe (arXiv:2105.04714): Quality Focal Loss on the
+The port of the JAX package's ``train/scrfd_train.py``. It follows the
+SCRFD paper's recipe (arXiv:2105.04714): Quality Focal Loss on the
 scores (target: the IoU of the decoded prediction with its assigned face,
 detached), DIoU on the decoded boxes, smooth-L1 on the five landmark
 offsets in stride units, and an ATSS assigner (arXiv:1912.02424: the
@@ -22,7 +21,17 @@ clips and the ``maximum`` / ``minimum`` calls are ``torch.maximum`` /
 
 The update is optax's chain, shared with the ArcFace trainer
 (``state.sgd_update_``); the BatchNorm statistics move once a step, as
-Flax moves them (``models/layers.py``). A fresh state takes the JAX
+Flax moves them (``models/layers.py``).
+
+``mesh=None`` trains on one device. With a ('data',) mesh the step is the
+JAX trainer's sharded one, which GSPMD keeps equal to the global-batch
+step: the batch splits over the slots (B must divide by them), each runs
+the detector on its part in a thread of its own (``parallel.collectives``;
+a copy of the weights on each other device, ``state.DataSlots``), its
+BatchNorm over the global batch, ATSS on its own images; the three loss
+terms' sums and their counts ``n_pos`` / ``n_kps`` are added over the
+slots before the division (``scrfd_loss_sums``), so the loss and the
+metrics are the whole batch's; one backward, one update. A fresh state takes the JAX
 trainer's initializers (``init_detector_``), not the serving side's
 ``seeded_init_``. Checkpoints are ``torch.save`` files of the detector's
 Flax-layout ``{"params", "batch_stats"}`` tensors, which
@@ -52,8 +61,10 @@ from ..ops.anchors import (SCRFD_NUM_ANCHORS, SCRFD_STRIDES,
                            _anchor_centers_np)
 from ..ops.decode import distance2bbox
 from ..ops.nms import stable_top_k
+from ..parallel.collectives import ordered_sum
 from ..utils.profiling import annotate
-from .state import check_trainable, module_from, placed_module, sgd_update_
+from .state import (DataSlots, check_trainable, module_from, placed_module,
+                    sgd_update_)
 
 # the JAX head's initializers (models/scrfd.py): N(0, 0.01^2) kernels on the
 # cls / box / kps convs, the cls bias at the prior p = 0.01
@@ -254,6 +265,38 @@ def scrfd_loss(outputs: Mapping[str, List[torch.Tensor]],
     leave the kps term (None: every valid face is labeled). Returns (loss,
     metrics {"cls", "box", "kps", "n_pos"}), all on the outputs' device.
     """
+    return scrfd_loss_from_sums(
+        scrfd_loss_sums(outputs, gt_boxes, gt_kps, gt_valid, cfg,
+                        gt_kps_valid), cfg)
+
+
+def scrfd_loss_from_sums(sums: Mapping[str, torch.Tensor],
+                         cfg: SCRFDLossConfig
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The loss and its metrics from ``scrfd_loss_sums``' sums and counts
+    (one batch's, or a meshed step's added over its slots): each term over
+    its count, at least 1."""
+    n_pos = sums["n_pos"].clamp_min(1).to(sums["cls"].dtype)
+    n_kps = sums["n_kps"].clamp_min(1).to(sums["cls"].dtype)
+    cls_loss = sums["cls"] / n_pos
+    box_loss = sums["box"] / n_pos
+    kps_loss = sums["kps"] / n_kps
+    loss = (cfg.cls_weight * cls_loss + cfg.box_weight * box_loss
+            + cfg.kps_weight * kps_loss)
+    return loss, {"cls": cls_loss, "box": box_loss, "kps": kps_loss,
+                  "n_pos": sums["n_pos"]}
+
+
+def scrfd_loss_sums(outputs: Mapping[str, List[torch.Tensor]],
+                    gt_boxes: torch.Tensor, gt_kps: torch.Tensor,
+                    gt_valid: torch.Tensor, cfg: SCRFDLossConfig,
+                    gt_kps_valid: Optional[torch.Tensor] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """``scrfd_loss``'s three terms before their division: {"cls", "box",
+    "kps"} summed over the batch's anchors, "n_pos" the positive anchors
+    and "n_kps" those whose face has landmarks. The JAX loss divides by the
+    counts of the whole batch, so a meshed step adds these over its slots
+    first."""
     if gt_kps_valid is None:
         gt_kps_valid = gt_valid
     scores = torch.cat(outputs["scores"], dim=1)[..., 0]          # (B, N)
@@ -267,7 +310,6 @@ def scrfd_loss(outputs: Mapping[str, List[torch.Tensor]],
     assigned, _ = atss_assign(gt_boxes, gt_valid.bool(), centers, aboxes,
                               level_sizes, cfg.topk)              # (B, N)
     pos = assigned >= 0
-    n_pos = pos.sum().clamp_min(1).to(dtype)
     idx = assigned.clamp_min(0)
 
     # classification: QFL against the IoU of the (detached) prediction
@@ -276,10 +318,10 @@ def scrfd_loss(outputs: Mapping[str, List[torch.Tensor]],
     box_l = diou_loss(boxes_pred, gt_for_anchor)
     pred_iou = 1.0 - _minimum(_maximum(box_l, 0.0), 1.0)
     q = torch.where(pos, pred_iou.detach(), 0.0)
-    cls_loss = quality_focal_loss(scores, q).sum() / n_pos
+    cls_sum = quality_focal_loss(scores, q).sum()
 
     # boxes: DIoU at the positives
-    box_loss = torch.where(pos, box_l, 0.0).sum() / n_pos
+    box_sum = torch.where(pos, box_l, 0.0).sum()
 
     # keypoints: smooth-L1 on stride-normalized offsets
     b, n = idx.shape
@@ -292,13 +334,9 @@ def scrfd_loss(outputs: Mapping[str, List[torch.Tensor]],
     kps_l = smooth_l1(kps_off - tgt_off).sum(dim=(-1, -2))
     # anchors whose face has no landmark labels leave the term
     kps_pos = pos & torch.gather(gt_kps_valid.bool(), 1, idx)
-    n_kps = kps_pos.sum().clamp_min(1).to(dtype)
-    kps_loss = torch.where(kps_pos, kps_l, 0.0).sum() / n_kps
-
-    loss = (cfg.cls_weight * cls_loss + cfg.box_weight * box_loss
-            + cfg.kps_weight * kps_loss)
-    return loss, {"cls": cls_loss, "box": box_loss, "kps": kps_loss,
-                  "n_pos": pos.sum()}
+    return {"cls": cls_sum, "box": box_sum,
+            "kps": torch.where(kps_pos, kps_l, 0.0).sum(),
+            "n_pos": pos.sum(), "n_kps": kps_pos.sum()}
 
 
 # --------------------------------------------------------------------------
@@ -346,7 +384,9 @@ class SCRFDTrainState(NamedTuple):
 
 @dataclasses.dataclass
 class SCRFDTrainer:
-    """SCRFD trainer on one device (``device``: the card unless "cpu").
+    """SCRFD trainer on one device (``device``: the card unless "cpu"), or
+    over the slots of a ('data',) ``mesh``, the state on the first slot's
+    device.
 
     ``model`` is the detector's architecture (a port ``SCRFDNet`` at
     float32 compute); each state gets its own copy, in the trainer's
@@ -365,11 +405,25 @@ class SCRFDTrainer:
     lr_decay: str = "cosine"
     device: Any = None
     dtype: torch.dtype = torch.float32
+    mesh: Any = None        # None: one device; else a ('data',) mesh
 
     def __post_init__(self):
         from .schedules import make_lr_schedule
 
-        self.device = resolve_device(self.device)
+        if self.mesh is None:
+            self.device = resolve_device(self.device)
+        else:
+            if tuple(self.mesh.axis_names) != ("data",):
+                raise ValueError(f"mesh axes {self.mesh.axis_names}: "
+                                 "('data',)")
+            first = self.mesh.devices.flat[0].device
+            if self.device is not None and \
+                    resolve_device(self.device) != first:
+                raise ValueError(f"device {self.device}: a meshed trainer "
+                                 f"keeps its state on the first slot's, "
+                                 f"{first}")
+            self.device = first
+            self._data = DataSlots(self.mesh)
         check_trainable(self.model, self.dtype)
         lr = make_lr_schedule(self.learning_rate, self.warmup_steps,
                               self.decay_steps, self.lr_decay)
@@ -431,23 +485,51 @@ class SCRFDTrainer:
         def put(x, dtype):
             return torch.as_tensor(x).to(self.device, dtype)
 
-        images = put(images, self.dtype)
-        gt_boxes, gt_kps = put(gt_boxes, self.dtype), put(gt_kps, self.dtype)
-        gt_valid = put(gt_valid, torch.bool)
-        kv = gt_valid if gt_kps_valid is None else put(gt_kps_valid,
-                                                       torch.bool)
+        if gt_kps_valid is None:
+            gt_kps_valid = gt_valid
         names, params = zip(*state.model.named_parameters())
         with torch.enable_grad():
-            loss, metrics = self.loss(state, images, gt_boxes, gt_kps,
-                                      gt_valid, kv)
-            with annotate("scrfd_train.backward"):
-                grads = list(torch.autograd.grad(loss, params))
+            if self.mesh is not None:
+                loss, metrics, grads = self._mesh_loss_grads(
+                    state, images, gt_boxes, gt_kps, gt_valid, gt_kps_valid)
+            else:
+                loss, metrics = self.loss(
+                    state, put(images, self.dtype), put(gt_boxes, self.dtype),
+                    put(gt_kps, self.dtype), put(gt_valid, torch.bool),
+                    put(gt_kps_valid, torch.bool))
+                with annotate("scrfd_train.backward"):
+                    grads = list(torch.autograd.grad(loss, params))
         with annotate("scrfd_train.update"):
             self.last_grad_norm = sgd_update_(
                 list(params), grads, [state.trace[n] for n in names],
                 self.lr(state.step), self.weight_decay)
         return (state._replace(step=state.step + 1), loss.detach(),
                 {k: v.detach() for k, v in metrics.items()})
+
+    def _mesh_loss_grads(self, state: SCRFDTrainState, images, gt_boxes,
+                         gt_kps, gt_valid, gt_kps_valid):
+        """The meshed step: (the global loss, its metrics, the gradients of
+        the master's parameters)."""
+        data = self._data
+        x, boxes, kps = (data.split(a, self.dtype)
+                         for a in (images, gt_boxes, gt_kps))
+        valid, kvalid = (data.split(a, torch.bool)
+                         for a in (gt_valid, gt_kps_valid))
+        modules, replicas = data.modules(state.model)
+
+        def slot(i):
+            outputs = modules[i].train()(x[i])
+            return scrfd_loss_sums(outputs, boxes[i], kps[i], valid[i],
+                                   self.loss_cfg, gt_kps_valid=kvalid[i])
+
+        with annotate("scrfd_train.forward_loss"):
+            sums = data.run(slot)
+            loss, metrics = scrfd_loss_from_sums(
+                {k: ordered_sum([s[k] for s in sums], self.device)
+                 for k in sums[0]}, self.loss_cfg)
+        with annotate("scrfd_train.backward"):
+            grads = data.grads(loss, state.model, replicas, [])
+        return loss, metrics, grads
 
     # ------------------------------------------------------- checkpointing
 

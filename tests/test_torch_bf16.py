@@ -388,7 +388,9 @@ def run_job(module: str, job: str, inp: str, out: str) -> None:
 def jax_reference(module: str, job: str, extra_env=None, **arrays) -> dict:
     """``<module>._job_<job>(**arrays)`` in a fresh process whose XLA rounds
     every bf16 op (``--xla_allow_excess_precision=false``); ``extra_env``
-    adds to its environment (``JAX_ENABLE_X64=1`` for a job in double)."""
+    adds to its environment or replaces a variable of it
+    (``JAX_ENABLE_X64=1`` for a job in double; ``XLA_FLAGS`` with the
+    virtual devices of a job on a mesh)."""
     import subprocess
     import sys
     import tempfile
@@ -396,8 +398,8 @@ def jax_reference(module: str, job: str, extra_env=None, **arrays) -> dict:
     tests = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_allow_excess_precision=false",
-               PYTHONPATH=os.pathsep.join([os.path.dirname(tests), tests]),
-               **(extra_env or {}))
+               PYTHONPATH=os.pathsep.join([os.path.dirname(tests), tests]))
+    env.update(extra_env or {})
     with tempfile.TemporaryDirectory() as d:
         inp, out = os.path.join(d, "in.npz"), os.path.join(d, "out.npz")
         np.savez(inp, **arrays)

@@ -1331,3 +1331,66 @@ def test_parallel_phase_fails_on_a_wrong_launch_count(monkeypatch, k1_step,
     rep, _, gal = _parallel_phase_on_the_cpu(monkeypatch, k1_step, k2_step)
     with pytest.raises(RuntimeError, match=match):
         chip_smoke.phase_parallel(torch, rep, gal)
+
+
+def _mesh_phase_on_the_cpu(monkeypatch):
+    """Phase 21 at small sizes on 4 CPU slots: phase 18's rehearsal (tiny
+    embedders 512 wide, a tiny seeded detector for the stand-in, the CLIs
+    in this process, K1 counted) with a tiny SCRFD in place of det_500m
+    and det_10g."""
+    import dataclasses
+
+    from scrfd_arcface_facerecognition_tpu_torch.models import scrfd as TS
+
+    rep, said = _train_phase_on_the_cpu(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "run_clis", lambda torch_, calls: [
+        chip_smoke.run_cli(torch_, m, a) for m, a in calls])
+    tiny = TS.SCRFDConfig("det_500m", 8, (1, 1, 1, 1), (8, 8, 16, 16),
+                          neck_filters=8, head_stacks=1, head_filters=16)
+    monkeypatch.setitem(TS.SCRFD_CONFIGS, "det_500m", tiny)
+    monkeypatch.setitem(TS.SCRFD_CONFIGS, "det_10g",
+                        dataclasses.replace(tiny, name="det_10g"))
+    monkeypatch.setattr(chip_smoke, "TRAIN_MESH", dict(
+        cmp=dict(rec="w600k_mbf", batch=4, classes=21, rate=0.5, steps=2,
+                 det="det_500m", size=128, max_gt=3),
+        full=dict(rec="w600k_r50", batch=4, classes=1000, rate=0.1,
+                  det="det_10g", size=128, det_batch=4, max_gt=4,
+                  det_batches=2, warm=1, timed=1),
+        serve=dict(rec="w600k_mbf", classes=8, batch=4, steps=1, crops=3,
+                   frames=2, hw=(120, 160), calls=1),
+        cli=dict(steps=1, rec="w600k_mbf", batch=4, det="det_500m",
+                 det_batch=4)))
+    return rep, said
+
+
+def test_train_mesh_phase_rehearsed_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 21: both meshes against their one-device trainers within the
+    float64 bound (the classes padded, the detector's slots holding
+    unequal face counts), the full-width steps timed beside 18b / 19b, a
+    mesh-trained checkpoint served with K1 counted and held, both CLIs on
+    4 slots; TF32's settings left as they were."""
+    monkeypatch.chdir(tmp_path)
+    before = _tf32()
+    rep, said = _mesh_phase_on_the_cpu(monkeypatch)
+    out = chip_smoke.phase_train_mesh(torch, rep, dict(arcface=1.0, det=2.0))
+    assert _tf32() == before
+    assert out["launches"] > 0 and out["err"] == 0.0
+    assert out["cos"] >= chip_smoke.TOL_TRAIN["cos"]
+    assert set(out["cmp"]) == {"full softmax", "Partial FC 0.5", "det"}
+    for r in out["cmp"].values():
+        assert r["rel"] <= chip_smoke.TOL_TRAIN["loss64"]
+        for gaps in r["gaps"]:
+            assert set(gaps) == {"weights", "BN statistics", "momentum"}
+            assert all(share <= 1.0 for share, _ in gaps.values())
+    assert min(out["cmp"]["det"]["n_pos"]) > 0
+    assert out["full"]["arcface"]["busy"] is None      # no profile off
+    text = "\n".join(said)                             # the card
+    for start in ("21a ArcFace mesh {'data': 2, 'model': 2}",
+                  "21 classes (padded to 22)", "21a detector mesh",
+                  "21b ArcFace mesh", "the one-device step of 18b in this "
+                  "run 1.000 ms", "21b detector mesh",
+                  "the one-device step of 19b in this run 2.000 ms",
+                  "one step's host time by span: forward_loss",
+                  "21c mesh-trained -> serve", "21d the CLIs",
+                  "mesh=data:2xmodel:2", "mesh=data:4", "phase 21 took"):
+        assert start in text, start
