@@ -290,9 +290,30 @@ non-zero exit if it fails:
    embeddings (cosine 0.9999) and served by two ``FacePipeline`` calls,
    K1 counted and held to its plain version; (d) both training CLIs with
    ``--synthetic 2 --slots 4``;
-22. one JSON line of every kernel's numbers (K1's launches are those of
-   phases 4, 13, 14, 15, 16, 17, 18, 19, 20 and 21; K2's those of phases
-   7, 17 and 20).
+22. the release sign-off tools (``SIGNOFF``): (a)
+   ``tools.verify_release`` on the card over 3 seeded synthetic frames
+   (480x640, 720x1280, 1080x1920): the five stand-ins (det_500m, det_2.5g,
+   det_10g, w600k_mbf, w600k_r50) preflighted, each through the graph
+   executor and the importer against its torch forward on the CPU, and
+   through importer -> exporter -> executor; ``FaceAnalysis`` at f32 on
+   det_10g + w600k_r50 and det_500m + w600k_mbf against the numpy
+   reference replica (``tools/e2e_oracle.py``), within the JAX tool's
+   budgets, TF32 off; every row printed, every verdict PASS; K1 counted
+   over the e2e stage and held to its plain version on its inputs; (b)
+   the same with ``--mutate`` (width / depth perturbed det_10g, w600k_mbf
+   and w600k_r50): the graph rows required, the pairings printed with
+   their hidden ties (a kept face with a suppressed neighbour of the same
+   score, outside the tie rule) and not required, K1 counted and held
+   alike; (c) a det_500m.onnx cut at 3/5 through the entry
+   point: exit 2, ``SIGN-OFF FAIL``, ``corrupt_or_truncated``, the
+   runbook; (d) ``tools.release_check --skip tests signoff mutate`` in a
+   child process: ``dryrun_multichip`` on 8 slots of the card (the
+   ArcFace DP x TP and Partial FC steps, the SCRFD DP step, sharded
+   frames, DisaggPipeline, sharded searches) and the page lint, its
+   report read back; the phase's seconds;
+23. one JSON line of every kernel's numbers (K1's launches are those of
+   phases 4, 13, 14, 15, 16, 17, 18, 19, 20, 21 and 22; K2's those of
+   phases 7, 17 and 20).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside it, the script exits non-zero and prints no
@@ -440,6 +461,10 @@ TRAIN_MESH = dict(
                frames=8, hw=(1080, 1920), calls=2),
     cli=dict(steps=2, rec="w600k_mbf", batch=64, det="det_500m",
              det_batch=4))
+# phase 22: the release sign-off tools (tools/verify_release.py and
+# release_check.py) on the card: seeded synthetic frames of mixed sizes
+# (480x640, 720x1280, 1080x1920), the gate's dry run on 8 slots of the card
+SIGNOFF = dict(frames=3, gate_slots=8)
 TRAIN_DET = dict(
     cmp=dict(det="det_500m", size=640, batch=4, max_gt=8, steps=3),
     full=dict(det="det_10g", size=640, batch=32, max_gt=32, warm=3,
@@ -5832,6 +5857,162 @@ def phase_train_mesh(torch, rep, ref_ms):
     return dict(cmp=cmp, full=full, **serve)
 
 
+# ------------------------------------------------ the release sign-off
+
+
+def signoff_run(torch, rep, vr, label, argv, require_e2e=True):
+    """One ``verify_release.run`` on the card at phase 22's settings, K1
+    counted over it (only the e2e stage warps) and held to its plain
+    version on the inputs of each frame-batch shape: (the run's result,
+    K1 launches, K1's largest error in u8). Every graph row must PASS,
+    and every e2e row unless ``require_e2e`` is False (then its rows are
+    printed and said to be not required)."""
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    args = vr.parse_args(["--device", DEV, "--n", str(SIGNOFF["frames"]),
+                          *argv])
+    sync_all(torch)
+    wa.launches = 0
+    with k1_capture() as calls:
+        res = vr.run(args, torch.device(DEV))
+        sync_all(torch)
+    launches = wa.launches
+    for row in res["rows"]:
+        rep.say(f"22{label} [graph] " + " | ".join(vr.row_cells(row))
+                + f" (executor cos {row['graph']['exec_cos']:.9f}, importer "
+                f"cos {row['graph']['imp_cos']:.9f}"
+                + ("" if row["rt"] is None else
+                   f", round trip cos {row['rt']['cos']:.9f}") + ")")
+    for r in res["e2e"]:
+        w = r["e2e"]
+        rep.say(f"22{label} [e2e] {r['pair']}: conf {w['thresh']:.6f} iou "
+                f"{w['iou']:.4f} faces {w['n_faces']} strict "
+                f"{w['n_strict']} mismatches {w['count_mismatch']} ties "
+                f"{w['tie_swaps']} hidden ties {w['hidden_ties']} box "
+                f"{w['box']:.3e} px kps {w['kps']:.3e} px score "
+                f"{w['score']:.3e} cos {w['cos']:.9f} simdiff "
+                f"{w['simdiff']:.3e} " + ("PASS" if r["passed"] else "FAIL")
+                + ("" if require_e2e else " (reported, not required)"))
+    hold_signoff(res, label, require_e2e)
+    if launches == 0:
+        fail(f"22{label} the sign-off's e2e stage launched K1 no time")
+    err, summary = k1_on_path(torch, wa, calls)
+    if err > TOL_U8:
+        fail(f"22{label} K1 vs plain on the e2e stage's inputs: {err} u8")
+    passed = ("every graph and pairing PASS" if res["code"] == 0 else
+              "every graph PASS, the pairings reported")
+    rep.say(f"22{label} {res['source']}: {passed}; K1 launches {launches} "
+            f"over the e2e stage; K1 vs plain on {summary}: {err:.6g} u8")
+    return res, launches, err
+
+
+def hold_signoff(res, label, require_e2e=True):
+    """Fail unless every graph row of a sign-off passed, and every e2e row
+    where they are required."""
+    failed = [row["name"] for row in res["rows"] if not row["passed"]]
+    if require_e2e:
+        failed += [r["pair"] for r in res["e2e"] if not r["passed"]]
+    if failed or res["source"] is None:
+        fail(f"22{label} the sign-off failed (exit {res['code']}, "
+             f"{res['source']}): {failed}")
+
+
+def phase_signoff(torch, rep):
+    """22: the release sign-off tools on the card (``SIGNOFF``): (a) the
+    stand-in sign-off of the five graphs (the graph stage, the export
+    round trip and both e2e pairings, all required); (b) the mutated
+    stand-ins (the graph stage and the round trip required, the pairings
+    reported); (c) a truncated det_500m.onnx through the entry point; (d)
+    the release gate in a child process."""
+    import contextlib
+    import io
+    import shutil
+
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        verify_release as vr)
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase22")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    no_weights = ["--weights", os.path.join(out_dir, "no_weights")]
+    launches, errs, secs = 0, [], []
+    runs = {}
+    # the mutated stand-ins prove that the architecture comes from the
+    # graph: their graph stage and round trip must pass. Their pairings are
+    # reported: the mutated det_10g keeps, on each frame, a face whose
+    # stride-32 neighbour ties its score and was suppressed, outside the
+    # JAX tool's tie rule (hidden ties), and on the card rounding may keep
+    # the neighbour instead
+    for label, extra, require_e2e in (("a", [], True),
+                                      ("b", ["--mutate"], False)):
+        t = time.perf_counter()
+        runs[label], n, err = signoff_run(torch, rep, vr, label,
+                                          no_weights + extra, require_e2e)
+        launches += n
+        errs.append(err)
+        secs.append(time.perf_counter() - t)
+    modes = {row["mode"] for row in runs["b"]["rows"]}
+    if modes != {"standin", "mutated"}:
+        fail(f"22b the mutated run's graphs were {modes}")
+    if (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32) != tf32:
+        fail("22 the sign-off left the TF32 settings changed")
+
+    # (c) a truncated download through the entry point
+    t = time.perf_counter()
+    bad = os.path.join(out_dir, "bad_weights")
+    os.makedirs(bad)
+    with open(runs["a"]["rows"][0]["path"], "rb") as f:
+        raw = f.read()
+    with open(os.path.join(bad, "det_500m.onnx"), "wb") as f:
+        f.write(raw[: len(raw) * 3 // 5])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = vr.main(["--device", DEV, "--weights", bad, "--out",
+                        os.path.join(out_dir, "PARITY_bad.md")])
+    said = buf.getvalue()
+    if code != 2 or "SIGN-OFF FAIL" not in said or "RUNBOOK" not in said \
+            or "corrupt_or_truncated" not in said:
+        fail(f"22c a truncated det_500m.onnx: exit {code}, {said!r}")
+    rep.say(f"22c a det_500m.onnx cut at 3/5 of its {len(raw)} bytes "
+            f"through verify_release.main: exit {code}, "
+            + said.strip().splitlines()[0])
+    secs.append(time.perf_counter() - t)
+
+    # (d) the release gate in a child process: the dry run on 8 slots of
+    # the card and the page lint (the tests need JAX, which this machine
+    # lacks; the sign-off ran in (a) and (b))
+    t = time.perf_counter()
+    gate = os.path.join(out_dir, "gate")
+    lines = run_cli(torch, "scrfd_arcface_facerecognition_tpu_torch.tools."
+                    "release_check", ["--device", DEV, "--skip", "tests",
+                                      "signoff", "mutate", "--log-dir",
+                                      gate])
+    with open(os.path.join(gate, "RELEASE_CHECK.md")) as f:
+        report = f.read()
+    for want in ("| tests | SKIP |", "| multichip | PASS |",
+                 "| signoff | SKIP |", "| mutate | SKIP |",
+                 "| uilint | PASS |", "**Overall: PASS**"):
+        if want not in report:
+            fail(f"22d release_check: no {want!r} in its report: {report}")
+    with open(os.path.join(gate, "release_check_multichip.log")) as f:
+        dry = [line for line in f if line.startswith("dryrun_multichip(")]
+    if not dry or f"dryrun_multichip({SIGNOFF['gate_slots']})" not in dry[0]:
+        fail(f"22d the dry run said {dry}")
+    secs.append(time.perf_counter() - t)
+    overall = [line for line in lines if line.startswith("[gate] overall")]
+    rep.say(f"22d release_check --skip tests signoff mutate in a child "
+            f"process: {' '.join(overall)}; {dry[0].strip()}")
+    rep.say(f"phase 22 took {time.perf_counter() - t0:.1f} s: (a) "
+            f"{secs[0]:.1f}, (b) {secs[1]:.1f}, (c) {secs[2]:.1f}, (d) "
+            f"{secs[3]:.1f}")
+    return dict(launches=launches, err=max(errs), runs=runs)
+
+
 def main():
     import torch
 
@@ -5929,6 +6110,9 @@ def main():
     tm = phase_train_mesh(torch, rep, dict(arcface=tr["full"][False]["ms"],
                                            det=dt["full"]["ms"]))
 
+    # 22. the release sign-off tools
+    so = phase_signoff(torch, rep)
+
     # the kernels
     t2 = gal["times"]
     kernels = [{
@@ -5937,11 +6121,11 @@ def main():
         "replaces": "scrfd_arcface_facerecognition_tpu/ops/pallas_warp.py:430",
         "launches": launches + bf["launches"] + rt["launches"]
         + ox["launches"] + cam["launches"] + web["k1"] + tr["launches"]
-        + dt["launches"] + par["k1"] + tm["launches"],
+        + dt["launches"] + par["k1"] + tm["launches"] + so["launches"],
         "max_abs_err": max(err3, err4, sp["err1"], fa["err"], eng["err"],
                            bf["err"], rt["err"], ox["err"], cam["err"],
                            web["err1"], tr["err"], dt["err"], par["err1"],
-                           tm["err"]),
+                           tm["err"], so["err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     }, {

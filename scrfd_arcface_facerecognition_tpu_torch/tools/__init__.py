@@ -15,6 +15,17 @@ the card: ``python -m scrfd_arcface_facerecognition_tpu_torch.tools.<name>``).
 - ``warp_band_ablate``: the same for K3 (no JAX counterpart);
 - ``warp_align_ablate``: the same for K1, the face-crop warp
   (``csrc/warp_align.cu``; no JAX counterpart).
+
+The release sign-off, ports of the JAX repository's root tools that run
+on the card (``--device cpu`` for the CPU):
+
+- ``verify_release``: the five-graph sign-off (preflight, executor and
+  importer against an oracle, the export round trip, ``FaceAnalysis``
+  end to end against the reference replica ``e2e_oracle``);
+- ``parity_harness``: the executor against the stand-ins or the importer;
+- ``dryrun_multichip``: one step of every sharded path on n slots;
+- ``release_check``: the gate that chains them with the tests and
+  ``check_ui_js``, the web page's script lint.
 """
 import time
 

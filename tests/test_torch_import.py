@@ -36,7 +36,10 @@ def test_import_leaves_no_jax_in_sys_modules():
         "       'train.state', 'train.scrfd_train', 'train.detection_data',\n"
         "       'utils.profiling', 'tools.train_scrfd', 'parallel',\n"
         "       'parallel.mesh', 'parallel.data_parallel',\n"
-        "       'parallel.sharded_gallery', 'parallel.disagg')\n"
+        "       'parallel.sharded_gallery', 'parallel.disagg',\n"
+        "       'tools.e2e_oracle', 'tools.verify_release',\n"
+        "       'tools.parity_harness', 'tools.check_ui_js',\n"
+        "       'tools.dryrun_multichip', 'tools.release_check')\n"
         "bad += [m for m in new if p.__name__ + '.' + m not in sys.modules]\n"
         "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
@@ -87,7 +90,10 @@ def test_no_module_of_the_port_imports_jax_flax_or_the_jax_package():
                 "train/detection_data.py", "utils/profiling.py",
                 "tools/train_scrfd.py", "parallel/__init__.py",
                 "parallel/mesh.py", "parallel/data_parallel.py",
-                "parallel/sharded_gallery.py", "parallel/disagg.py"):
+                "parallel/sharded_gallery.py", "parallel/disagg.py",
+                "tools/e2e_oracle.py", "tools/verify_release.py",
+                "tools/parity_harness.py", "tools/check_ui_js.py",
+                "tools/dryrun_multichip.py", "tools/release_check.py"):
         assert mod in names, mod
     for path in files:
         bad = set(_imported_roots(path)) & set(_FORBIDDEN)

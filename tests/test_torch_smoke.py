@@ -1394,3 +1394,135 @@ def test_train_mesh_phase_rehearsed_on_the_cpu(monkeypatch, tmp_path):
                   "21c mesh-trained -> serve", "21d the CLIs",
                   "mesh=data:2xmodel:2", "mesh=data:4", "phase 21 took"):
         assert start in text, start
+
+
+def _signoff_phase_on_the_cpu(monkeypatch):
+    """Phase 22 on the CPU: small torch stand-ins in place of the five
+    full-width ones (and of the mutated three), smaller frames of three
+    sizes, K1 counted where the wrapper would count it, the gate run in
+    this process (its steps still in child processes)."""
+    import contextlib
+    import importlib
+    import io
+
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        e2e_oracle as eo, verify_release as vr)
+
+    rep, said = _no_card(monkeypatch, wa)
+    real = vr.torch_export
+
+    def small():
+        te = real()
+        det = dict(stem=8, blocks=(1, 1, 1, 1), planes=(8, 8, 16, 16),
+                   neck=16, head_feat=16, head_stacks=1)
+        mbf = dict(blocks=(1, 1, 1, 1), scale=1, stem_filters=16,
+                   stem_dw_groups=16, stage_filters=(16, 32, 32),
+                   down_groups=(16, 32, 32), res_groups=(16, 16, 32, 32),
+                   sep_filters=64)
+        te.STAND_INS = {
+            "det_500m": lambda: te.TorchSCRFD(**det),
+            "det_2.5g": lambda: te.TorchSCRFD(**dict(det, head_stacks=2)),
+            "det_10g": lambda: te.TorchSCRFD(**dict(
+                det, stem=16, planes=(16, 16, 24, 32), head_feat=32)),
+            "w600k_mbf": lambda: te.TorchMobileFaceNet(**mbf),
+            "w600k_r50": lambda: te.TorchIResNet(blocks=(1, 1, 1, 1),
+                                                 planes=(8, 16, 16, 32)),
+        }
+        te.MUTATED_STAND_INS = {
+            "det_10g": lambda: te.TorchSCRFD(**dict(
+                det, planes=(8, 16, 24, 32), neck=24, head_feat=32,
+                gn_groups=8)),
+            "w600k_mbf": lambda: te.TorchMobileFaceNet(**dict(
+                mbf, sep_filters=96, stage_filters=(16, 32, 48))),
+            "w600k_r50": lambda: te.TorchIResNet(blocks=(1, 2, 1, 1),
+                                                 planes=(8, 16, 24, 40)),
+        }
+        return te
+
+    monkeypatch.setattr(vr, "torch_export", small)
+    monkeypatch.setattr(chip_smoke, "SIGNOFF", dict(frames=3, gate_slots=8))
+    frames = eo.synthetic_frames
+    monkeypatch.setattr(eo, "synthetic_frames", lambda n: frames(
+        n, sizes=((120, 160), (180, 320), (270, 480))))
+    crops = ops.warp_align_crops
+
+    def counted(*a, **k):
+        wa.launches += 1
+        return crops(*a, **k)
+
+    monkeypatch.setattr(ops, "warp_align_crops", counted)
+
+    def in_process(torch_, module, args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert importlib.import_module(module).main(list(args)) == 0
+        return buf.getvalue().splitlines()
+
+    monkeypatch.setattr(chip_smoke, "run_cli", in_process)
+    return rep, said
+
+
+def test_signoff_phase_rehearsed_on_the_cpu(monkeypatch):
+    """Phase 22: both sign-offs PASS row by row (the mutated one on its
+    mutated graphs), K1 counted over the e2e stage and 0 u8 from its plain
+    version, the truncated file refused with its class, the gate's report
+    read back; TF32's settings left as they were."""
+    before = _tf32()
+    rep, said = _signoff_phase_on_the_cpu(monkeypatch)
+    out = chip_smoke.phase_signoff(torch, rep)
+    assert _tf32() == before
+    assert out["launches"] > 0 and out["err"] == 0.0
+    assert [r["mode"] for r in out["runs"]["b"]["rows"]] == [
+        "standin", "standin", "mutated", "mutated", "mutated"]
+    for run in out["runs"].values():
+        assert all(r["passed"] for r in run["rows"]) and len(run["rows"]) == 5
+        assert [r["pair"] for r in run["e2e"]] == [
+            "det_10g+w600k_r50", "det_500m+w600k_mbf"]
+        assert all(r["e2e"]["n_strict"] > 0 for r in run["e2e"])
+    assert out["runs"]["a"]["code"] == 0
+    text = "\n".join(said)
+    for start in ("22a [graph] det_500m | standin", "22a [e2e] det_10g+",
+                  "22b [graph] w600k_r50 | mutated", "22b [e2e] det_500m+",
+                  "22a 3 seeded synthetic frames", "K1 vs plain on",
+                  "22c a det_500m.onnx cut at 3/5", "corrupt_or_truncated",
+                  "22d release_check --skip tests signoff mutate",
+                  "[gate] overall: PASS", "dryrun_multichip(8) on cpu",
+                  "phase 22 took"):
+        assert start in text, start
+    assert "FAIL" not in text.replace("SIGN-OFF FAIL", "")
+    assert "(reported, not required)" in text
+    assert "(reported, not required)" not in "\n".join(
+        s for s in said if s.startswith("22a"))
+
+
+def test_signoff_run_reports_the_pairings_it_does_not_require(monkeypatch):
+    """(b)'s pairings are printed and not required: a pairing past its
+    budget leaves such a run passing, FAIL said on its row; a run that
+    requires its pairings fails on it."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        verify_release as vr)
+
+    rep, said = _signoff_phase_on_the_cpu(monkeypatch)
+    monkeypatch.setattr(vr, "e2e_passed", lambda w: False)
+    argv = ["--weights", "/nonexistent", "--mutate"]
+    res, launches, err = chip_smoke.signoff_run(torch, rep, vr, "b", argv,
+                                                require_e2e=False)
+    assert res["code"] == 1 and launches > 0 and err == 0.0
+    assert all(r["passed"] for r in res["rows"])
+    assert sum("FAIL (reported, not required)" in s for s in said) == 2
+    with pytest.raises(RuntimeError, match="22b the sign-off failed"):
+        chip_smoke.hold_signoff(res, "b")
+
+
+def test_signoff_phase_fails_on_a_graph_past_its_budget(monkeypatch):
+    """A sign-off row that fails its budget fails the phase."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        verify_release as vr)
+
+    rep, said = _signoff_phase_on_the_cpu(monkeypatch)
+    monkeypatch.setattr(vr, "DET_RAW_BUDGET", 0.0)
+    with pytest.raises(RuntimeError, match="22a the sign-off failed"):
+        chip_smoke.phase_signoff(torch, rep)
+    assert any("| FAIL" in s for s in said)
