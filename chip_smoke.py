@@ -311,9 +311,30 @@ non-zero exit if it fails:
    ArcFace DP x TP and Partial FC steps, the SCRFD DP step, sharded
    frames, DisaggPipeline, sharded searches) and the page lint, its
    report read back; the phase's seconds;
-23. one JSON line of every kernel's numbers (K1's launches are those of
+23. the gallery at deployment scale (``GALLERY_SCALE``), through the
+   port's tools: (a) ``tools.exp_pq_scale`` at G = 10,000,000 (640 MB of
+   codes), the query sweep 16, 64, 128, 256 in both LUT precisions, the
+   2,000,000-row dense search and the recall study, K2's launch count
+   reset just before and read just after: every id >= 0, K2 bit-equal to
+   its plain version on the 10M codes at Q = 16 in both precisions and at
+   Q = 256 in "hi" (2.56e9 scores, past 2^31; the comparison's own
+   launches not counted), each search's peak device memory and stage
+   split, top-1 same identity 1.0 with and without the rerank; (b)
+   ``tools.exp_migration``: the synchronous and the background crossing
+   at 1,000,000 rows, top-1 self 16/16 after each and on every probe
+   while the background build runs, which must not fail; (c)
+   ``tools.exp_merge_1m`` at 500,000 rows, 2,000 planted pairs, threshold
+   0.95: exactly the planted pairs, G - 2,000 groups after the
+   union-find; (d) ``tools.exp_train_budget`` at its defaults (1,000,000
+   rows, 256 queries): 256/256 at the shipped codec budget (50,000 rows,
+   10 iterations), the other rungs reported; each part's seconds. The
+   scan of (c) at its default 1,000,000 rows (127 s on an NVIDIA H100
+   80GB HBM3 at 700 W: a full sort of every (block, G) slab) and the
+   2,000,000-row synchronous crossing do not fit beside the rest; run
+   them with the tools' own entry points;
+24. one JSON line of every kernel's numbers (K1's launches are those of
    phases 4, 13, 14, 15, 16, 17, 18, 19, 20, 21 and 22; K2's those of
-   phases 7, 17 and 20).
+   phases 7, 17, 20 and 23).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside it, the script exits non-zero and prints no
@@ -465,6 +486,12 @@ TRAIN_MESH = dict(
 # release_check.py) on the card: seeded synthetic frames of mixed sizes
 # (480x640, 720x1280, 1080x1920), the gate's dry run on 8 slots of the card
 SIGNOFF = dict(frames=3, gate_slots=8)
+GALLERY_SCALE = dict(
+    pq=dict(g=10_000_000, q_sweep=(16, 64, 128, 256), dense_g=2_000_000),
+    k2_checks=((16, "hilo"), (16, "hi"), (256, "hi")),
+    sync_rows=1_000_000, async_rows=1_000_000,
+    merge=dict(g=500_000, dups=2000, threshold=0.95),
+    budget=dict(rows=1_000_000, queries=256))
 TRAIN_DET = dict(
     cmp=dict(det="det_500m", size=640, batch=4, max_gt=8, steps=3),
     full=dict(det="det_10g", size=640, batch=32, max_gt=32, warm=3,
@@ -6013,6 +6040,196 @@ def phase_signoff(torch, rep):
     return dict(launches=launches, err=max(errs), runs=runs)
 
 
+
+def k2_bit_equal(torch, pq_adc, lut, codes, precision, block=64):
+    """K2 on the whole (Q, G) against its plain version computed ``block``
+    queries at a time (the plain scan holds three (block, G) tensors, not
+    three (Q, G) ones): every score bit-equal, NaN where NaN. The
+    comparison's own launch is taken back off K2's count. Returns the max
+    abs difference of the finite scores: 0.0, or the phase fails."""
+    n0 = pq_adc.launches
+    got = pq_adc.pq_adc_scores(lut, codes, precision)
+    pq_adc.launches = n0
+    for q0 in range(0, lut.shape[0], block):
+        want = pq_adc.adc_scores_plain(lut[q0:q0 + block], codes, precision)
+        part = got[q0:q0 + block]
+        nan = torch.isnan(part)
+        if not torch.equal(nan, torch.isnan(want)):
+            fail(f"23a K2 ({precision}): NaN positions differ from the "
+                 f"plain version in queries {q0}..{q0 + len(want) - 1}")
+        same = (part.view(torch.int32) == want.view(torch.int32)) | nan
+        if not bool(same.all()):
+            fin = torch.isfinite(want) & torch.isfinite(part)
+            d = float((part[fin] - want[fin]).abs().max()) if bool(
+                fin.any()) else float("inf")
+            fail(f"23a K2 ({precision}) differs from its plain version at "
+                 f"{int((~same).sum())} of {same.numel()} scores "
+                 f"(queries {q0}..{q0 + len(want) - 1}; max abs difference "
+                 f"of the finite ones {d:.6g})")
+        del want, part, nan, same
+    del got
+    return 0.0
+
+
+def scale_search(torch, rep):
+    """23a: tools.exp_pq_scale at GALLERY_SCALE["pq"], K2 counted over the
+    tool's run and held to its plain version on the 10M codes."""
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import pq_adc
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        exp_pq_scale as xs)
+
+    cfg = GALLERY_SCALE["pq"]
+    want_checks = set(GALLERY_SCALE["k2_checks"])
+    lines, checked = [], []
+
+    def inspect(gal, qs):
+        codes = gal._codes
+        for q, precision in sorted(want_checks):
+            if q != len(qs):
+                continue
+            t = time.perf_counter()
+            lut = gal.codec.lut(qs)
+            err = k2_bit_equal(torch, pq_adc, lut, codes, precision)
+            checked.append((q, precision, err, q * codes.shape[0],
+                            time.perf_counter() - t))
+            del lut
+
+    torch.cuda.empty_cache()
+    pq_adc.launches = 0
+    res = xs.run(g=cfg["g"], q_sweep=cfg["q_sweep"],
+                 dense_g=cfg["dense_g"], device=DEV, emit=lines.append,
+                 inspect=inspect)
+    launches = pq_adc.launches
+    for line in lines:
+        rep.say("23a " + json.dumps(line))
+    if launches == 0:
+        fail("23a exp_pq_scale launched K2 no time")
+    if {(q, p) for q, p, *_ in checked} != want_checks:
+        fail(f"23a K2 was held to its plain version at "
+             f"{sorted((q, p) for q, p, *_ in checked)}, not at "
+             f"{sorted(want_checks)}")
+    bad = [r for r in res["sweep"] if r["min_id"] < 0]
+    if bad:
+        fail(f"23a a search returned an id < 0: {bad[0]}")
+    for r in res["recall"]:
+        if r["top1_same_identity"] != 1.0:
+            fail(f"23a top-1 same identity {r['top1_same_identity']} < 1.0 "
+                 f"({r['label']})")
+    f = res["fill"]
+    rep.say(f"23a fill of {cfg['g']} rows: {f['rows_per_s']:.1f} rows/s, "
+            f"{f['seconds']:.2f} s = making the rows on the host "
+            f"{f['make_rows_s']:.2f} s + PQGallery.add (encoding, the "
+            f"scatter, the free list) {f['add_s']:.2f} s")
+    for r in res["sweep"]:
+        st = r["stage_ms"]
+        mem = ("not measured (no card)" if r["peak_bytes"] is None else
+               f"{r['peak_bytes'] / 1e9:.3f} GB ("
+               f"{r['resident_bytes'] / 1e9:.3f} GB resident before)")
+        rep.say(f"23a Q={r['q']} {r['precision']}: median {r['ms']:.3f} ms "
+                f"({r['per_query_ms']:.4f} ms a query); one synchronized "
+                f"search: pq_lut {st.get('pq_lut', 0):.3f}, pq_adc "
+                f"{st.get('pq_adc', 0):.3f}, pq_topk {st.get('pq_topk', 0):.3f}"
+                f" ms; peak device memory {mem}")
+    for q, precision, err, n, secs in checked:
+        rep.say(f"23a K2 vs plain on the {cfg['g']} codes at Q={q} "
+                f"{precision}: {n} scores ({'past' if n > 2 ** 31 else 'below'}"
+                f" 2^31), bit-equal, NaN positions equal ({secs:.1f} s)")
+    rep.say(f"23a K2 launches over exp_pq_scale: {launches}")
+    return dict(launches=launches, err=max(c[2] for c in checked),
+                res=res)
+
+
+def scale_migration(torch, rep):
+    """23b: tools.exp_migration, the synchronous and the background
+    crossing; K2 counted over both."""
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import pq_adc
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        exp_migration as xm)
+
+    pq_adc.launches = 0
+    sync = xm.run_scale(GALLERY_SCALE["sync_rows"], device=DEV)
+    rep.say("23b sync " + json.dumps(sync))
+    if sync["top1_self"] != "16/16":
+        fail(f"23b top-1 self {sync['top1_self']} after the synchronous "
+             f"crossing")
+    asy = xm.run_scale_async(GALLERY_SCALE["async_rows"], device=DEV)
+    rep.say("23b async " + json.dumps(asy))
+    if asy["bg_failed"]:
+        fail("23b the background migration failed")
+    if asy["swap_call_s"] is None:
+        fail("23b the tier never flipped to pq")
+    if asy["top1_self"] != "16/16":
+        fail(f"23b top-1 self {asy['top1_self']} after the background "
+             f"crossing")
+    if asy["probe_top1_self_min"] not in (None, "16/16"):
+        fail(f"23b a probe during the migration found top-1 self "
+             f"{asy['probe_top1_self_min']}")
+    launches = pq_adc.launches
+    if launches == 0:
+        fail("23b the migrated tiers launched K2 no time")
+    rep.say(f"23b K2 launches over both crossings: {launches}")
+    return dict(launches=launches, sync=sync, asy=asy)
+
+
+def scale_merge(torch, rep):
+    """23c: tools.exp_merge_1m; exactly the planted pairs come back."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        exp_merge_1m as xd)
+
+    cfg = GALLERY_SCALE["merge"]
+    lines = []
+    res = xd.run(cfg["g"], cfg["dups"], cfg["threshold"], device=DEV,
+                 emit=lines.append)
+    for line in lines:
+        rep.say("23c " + json.dumps(line))
+    if not res["exact_match"]:
+        fail(f"23c the scan found {res['pairs_found']} pairs, not the "
+             f"{cfg['dups']} planted: missed {res['missed'][:5]}, extra "
+             f"{res['extra'][:5]}")
+    if res["groups_after_merge"] != cfg["g"] - cfg["dups"]:
+        fail(f"23c {res['groups_after_merge']} groups after the merge, not "
+             f"{cfg['g'] - cfg['dups']}")
+    return res
+
+
+def scale_budget(torch, rep):
+    """23d: tools.exp_train_budget; every query's identity at the codec
+    budget AutoGallery ships."""
+    import inspect
+
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import AutoGallery
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        exp_train_budget as xb)
+
+    cfg = GALLERY_SCALE["budget"]
+    params = inspect.signature(AutoGallery).parameters
+    shipped = (params["pq_train_rows"].default,
+               params["pq_train_iters"].default)
+    rows = xb.run(cfg["rows"], cfg["queries"], DEV,
+                  emit=lambda line: rep.say("23d " + json.dumps(line)))
+    at = [r for r in rows if (r["train_rows"], r["iters"]) == shipped]
+    if not at:
+        fail(f"23d the ladder has no rung at the shipped budget {shipped}")
+    if at[0]["hits"] != cfg["queries"]:
+        fail(f"23d top-1 identity {at[0]['top1_identity']} at the shipped "
+             f"budget {shipped}")
+    return rows
+
+
+def phase_gallery_scale(torch, rep):
+    """23: the gallery at deployment scale through the port's tools."""
+    t0 = time.perf_counter()
+    out, secs = {}, {}
+    for part, run in (("a", scale_search), ("b", scale_migration),
+                      ("c", scale_merge), ("d", scale_budget)):
+        t = time.perf_counter()
+        out[part] = run(torch, rep)
+        secs[part] = time.perf_counter() - t
+    rep.say(f"phase 23 took {time.perf_counter() - t0:.1f} s: "
+            + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()))
+    return dict(launches=out["a"]["launches"] + out["b"]["launches"],
+                err=out["a"]["err"], secs=secs)
+
 def main():
     import torch
 
@@ -6113,6 +6330,9 @@ def main():
     # 22. the release sign-off tools
     so = phase_signoff(torch, rep)
 
+    # 23. the gallery at deployment scale
+    gs = phase_gallery_scale(torch, rep)
+
     # the kernels
     t2 = gal["times"]
     kernels = [{
@@ -6132,9 +6352,10 @@ def main():
         "name": pq_adc.NAME, "route": "cuda",
         "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/pq_adc.cu",
         "replaces": "scrfd_arcface_facerecognition_tpu/gallery/pq.py:302",
-        "launches": gal["launches"] + web["k2"] + par["k2"],
+        "launches": gal["launches"] + web["k2"] + par["k2"]
+        + gs["launches"],
         "max_abs_err": max(err6, gal["err"], eng_pq["err"], web["err2"],
-                           par["err2"]),
+                           par["err2"], gs["err"]),
         "ms": t2["ms"], "plain_ms": t2["plain_ms"],
         "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
         "library_ms": t2["library_ms"],

@@ -26,6 +26,21 @@ on the card (``--device cpu`` for the CPU):
 - ``dryrun_multichip``: one step of every sharded path on n slots;
 - ``release_check``: the gate that chains them with the tests and
   ``check_ui_js``, the web page's script lint.
+
+The gallery at the scale its tiers exist for, ports of the JAX
+repository's root experiments that drive the gallery's own paths (K2 the
+one kernel on them; ``--device cpu`` for the CPU):
+
+- ``exp_pq_scale``: a 10M-row PQ gallery's fill rate, search over a
+  query-batch sweep in both LUT precisions, a dense search for context,
+  recall of ADC and of the exact rerank;
+- ``exp_migration``: the dense -> PQ crossing of ``AutoGallery``, its
+  synchronous stall and serving while it migrates in the background;
+- ``exp_merge_1m``: the blocked duplicate scan over a million rows with
+  planted pairs, then the union-find merge worklist;
+- ``exp_train_budget``: the codec's train budget against shortlist
+  quality, why ``AutoGallery`` ships its ``pq_train_rows`` /
+  ``pq_train_iters``.
 """
 import time
 
@@ -50,3 +65,9 @@ def device_ms(fn, iters: int, dev: torch.device) -> float:
     for _ in range(iters):
         fn()
     return (time.perf_counter() - t) * 1e3 / iters
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the card to finish its queued work; nothing on the CPU."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

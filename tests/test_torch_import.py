@@ -1,5 +1,5 @@
-"""The port stands alone: it imports neither JAX, Flax nor the JAX package,
-nor cv2 at module level (the card's machine has no cv2), and its entry
+"""The port stands alone: it imports neither JAX, Flax, the JAX package
+nor the JAX repository's root ``tools/``, nor cv2 at module level (the card's machine has no cv2), and its entry
 points never fall back to the CPU on their own."""
 import ast
 import os
@@ -13,7 +13,7 @@ import torch
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.join(_REPO, "scrfd_arcface_facerecognition_tpu_torch")
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
-              "scrfd_arcface_facerecognition_tpu")
+              "scrfd_arcface_facerecognition_tpu", "tools")
 
 
 def test_import_leaves_no_jax_in_sys_modules():
@@ -39,7 +39,9 @@ def test_import_leaves_no_jax_in_sys_modules():
         "       'parallel.sharded_gallery', 'parallel.disagg',\n"
         "       'tools.e2e_oracle', 'tools.verify_release',\n"
         "       'tools.parity_harness', 'tools.check_ui_js',\n"
-        "       'tools.dryrun_multichip', 'tools.release_check')\n"
+        "       'tools.dryrun_multichip', 'tools.release_check',\n"
+        "       'tools.exp_merge_1m', 'tools.exp_train_budget',\n"
+        "       'tools.exp_migration', 'tools.exp_pq_scale')\n"
         "bad += [m for m in new if p.__name__ + '.' + m not in sys.modules]\n"
         "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
@@ -93,7 +95,9 @@ def test_no_module_of_the_port_imports_jax_flax_or_the_jax_package():
                 "parallel/sharded_gallery.py", "parallel/disagg.py",
                 "tools/e2e_oracle.py", "tools/verify_release.py",
                 "tools/parity_harness.py", "tools/check_ui_js.py",
-                "tools/dryrun_multichip.py", "tools/release_check.py"):
+                "tools/dryrun_multichip.py", "tools/release_check.py",
+                "tools/exp_merge_1m.py", "tools/exp_train_budget.py",
+                "tools/exp_migration.py", "tools/exp_pq_scale.py"):
         assert mod in names, mod
     for path in files:
         bad = set(_imported_roots(path)) & set(_FORBIDDEN)

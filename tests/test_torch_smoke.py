@@ -1526,3 +1526,146 @@ def test_signoff_phase_fails_on_a_graph_past_its_budget(monkeypatch):
     with pytest.raises(RuntimeError, match="22a the sign-off failed"):
         chip_smoke.phase_signoff(torch, rep)
     assert any("| FAIL" in s for s in said)
+
+
+def _gallery_scale_on_the_cpu(monkeypatch):
+    """Phase 23 at small sizes: an 8,000-row PQ gallery, the sweep at Q = 4
+    and 8 with K2 held to its plain version at both, a 4,000-row recall
+    study, 1,500 rows through each crossing, a 4,000-row duplicate scan
+    with 20 planted pairs, the budget ladder at 2,048 rows with the
+    shipped rung; every codec trained on at most 2,000 rows in at most 10
+    k-means iterations; K2 counted where the wrapper would count it."""
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import (
+        pq as tpq, pq_adc)
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        exp_pq_scale, exp_train_budget)
+
+    rep, said = _no_card(monkeypatch, wa)
+    monkeypatch.setattr(chip_smoke, "GALLERY_SCALE", dict(
+        pq=dict(g=8000, q_sweep=(4, 8), dense_g=4000),
+        k2_checks=((4, "hilo"), (4, "hi"), (8, "hi")),
+        sync_rows=1500, async_rows=1500,
+        merge=dict(g=4000, dups=20, threshold=0.95),
+        budget=dict(rows=2048, queries=32)))
+    monkeypatch.setattr(exp_pq_scale, "CODEC_TRAIN_ROWS", 2000)
+    monkeypatch.setattr(exp_train_budget, "LADDER",
+                        ((1024, 3), (50_000, 10)))
+    train, scores = tpq.PQCodec.train, tpq.pq_adc_scores
+
+    def short_train(emb, *a, iters=20, **k):
+        return train(emb[:2000], *a, iters=min(iters, 10), **k)
+
+    def counted(*a, **k):
+        pq_adc.launches += 1
+        return scores(*a, **k)
+
+    monkeypatch.setattr(tpq.PQCodec, "train", staticmethod(short_train))
+    monkeypatch.setattr(tpq, "pq_adc_scores", counted)
+    return rep, said
+
+
+def test_gallery_scale_phase_rehearsed_on_the_cpu(monkeypatch):
+    """Phase 23: every tool's lines said, K2 counted over the PQ-scale run
+    and both crossings (the comparison's launches not counted) and equal
+    to its plain version at each checked (Q, precision), the planted pairs
+    back, the shipped budget at every query, each part's seconds."""
+    rep, said = _gallery_scale_on_the_cpu(monkeypatch)
+    out = chip_smoke.phase_gallery_scale(torch, rep)
+    # the sweep's 2 x 2 x 7 searches, then the recall study's 2; the two
+    # crossings' first PQ searches
+    assert out["launches"] == 30 + 2 and out["err"] == 0.0
+    text = "\n".join(said)
+    for start in ("23a {\"metric\": \"pq_fill_rate (encode+scatter, "
+                  "G=8000)\"",
+                  "pq_adc/hi, codes 1 MB",
+                  "23a K2 vs plain on the 8000 codes at Q=4 hilo",
+                  "23a K2 vs plain on the 8000 codes at Q=4 hi:",
+                  "23a K2 vs plain on the 8000 codes at Q=8 hi",
+                  "23a Q=8 hi: median", "pq_topk", "peak device memory",
+                  "23a {\"metric\": \"pq_recall_at_5 (rerank=100",
+                  "23b sync {\"rows\": 1500", "23b async {\"mode\": \"async\"",
+                  "\"bg_failed\": false", "23c {\"metric\": "
+                  "\"blocked_dedup_scan_s (G=4000, 20 planted pairs",
+                  "\"exact_match\": true", "\"groups_after_merge\": 3980",
+                  "23d {\"train_rows\": 50000, \"iters\": 10",
+                  "phase 23 took"):
+        assert start in text, start
+
+
+def test_gallery_scale_phase_fails_on_a_k2_that_differs(monkeypatch):
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import pq_adc
+
+    rep, _ = _gallery_scale_on_the_cpu(monkeypatch)
+    plain = pq_adc.adc_scores_plain
+
+    def off_by_an_ulp(lut, codes, precision="hilo"):
+        out = plain(lut, codes, precision)
+        out[0, 3] = torch.nextafter(out[0, 3], torch.tensor(np.inf))
+        return out
+
+    monkeypatch.setattr(pq_adc, "pq_adc_scores", off_by_an_ulp)
+    with pytest.raises(RuntimeError, match=r"23a K2 \(hi\w*\) differs from "
+                                           r"its plain version at 1 of"):
+        chip_smoke.scale_search(torch, rep)
+
+
+def test_gallery_scale_phase_fails_on_a_missed_pair(monkeypatch):
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import dedup
+
+    rep, _ = _gallery_scale_on_the_cpu(monkeypatch)
+    scan = dedup.find_duplicate_pairs_blocked
+    monkeypatch.setattr(dedup, "find_duplicate_pairs_blocked",
+                        lambda *a, **k: scan(*a, **k)[:-1])
+    with pytest.raises(RuntimeError, match=r"23c the scan found 19 pairs, "
+                                           r"not the 20 planted: missed "
+                                           r"\[\(19, 3999\)\]"):
+        chip_smoke.scale_merge(torch, rep)
+
+
+def test_gallery_scale_phase_fails_on_an_async_build_that_raises(
+        monkeypatch):
+    import threading
+
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import AutoGallery
+    from scrfd_arcface_facerecognition_tpu_torch.tools import exp_migration
+
+    rep, _ = _gallery_scale_on_the_cpu(monkeypatch)
+    build = AutoGallery._build_pq
+
+    def fails_in_the_background(self, *a, **k):
+        if threading.current_thread() is not threading.main_thread():
+            raise RuntimeError("a background build that raises")
+        return build(self, *a, **k)
+
+    monkeypatch.setattr(AutoGallery, "_build_pq", fails_in_the_background)
+    monkeypatch.setattr(exp_migration, "run_scale", lambda n, device: dict(
+        rows=n, top1_self="16/16"))
+    with pytest.raises(RuntimeError,
+                       match="23b the background migration failed"):
+        chip_smoke.scale_migration(torch, rep)
+
+
+@pytest.mark.parametrize("part", ["budget", "crossing"])
+def test_gallery_scale_phase_fails_on_a_top1_below_the_count(monkeypatch,
+                                                             part):
+    """23d at the shipped budget and 23b after the crossing need every
+    query."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        exp_migration, exp_train_budget)
+
+    rep, _ = _gallery_scale_on_the_cpu(monkeypatch)
+    if part == "budget":
+        monkeypatch.setattr(exp_train_budget, "LADDER", ((50_000, 10),))
+        evaluate = exp_train_budget.evaluate
+        monkeypatch.setattr(exp_train_budget, "evaluate", lambda *a: (
+            evaluate(*a)[0] - 1, 0.0))
+        with pytest.raises(RuntimeError, match=r"23d top-1 identity 31/32 "
+                                               r"at the shipped budget "
+                                               r"\(50000, 10\)"):
+            chip_smoke.scale_budget(torch, rep)
+    else:
+        monkeypatch.setattr(exp_migration, "top1_self", lambda hits: 15)
+        with pytest.raises(RuntimeError, match="23b top-1 self 15/16 after "
+                                               "the synchronous crossing"):
+            chip_smoke.scale_migration(torch, rep)
