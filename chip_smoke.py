@@ -332,8 +332,32 @@ non-zero exit if it fails:
    80GB HBM3 at 700 W: a full sort of every (block, G) slab) and the
    2,000,000-row synchronous crossing do not fit beside the rest; run
    them with the tools' own entry points;
-24. one JSON line of every kernel's numbers (K1's launches are those of
-   phases 4, 13, 14, 15, 16, 17, 18, 19, 20, 21 and 22; K2's those of
+24. the serving host's budget and the trainers' proof (``HOST_TOOLS``),
+   through the port's tools: (a) ``tools.exp_microbatch`` at its
+   defaults (64 requests of 640 x 640 from 16 threads, det_10g +
+   w600k_r50 seeded at bf16, max_wait 4 ms, max_num 4), one batch-1
+   ``get()`` a request, then coalesced: req/s of both modes, the measured
+   round's batches and widest; one warm batch-1 ``get()`` under
+   ``torch.profiler`` (the device's busy share); K1's launch count reset
+   just before and read just after (none fails), K1 against its plain
+   version on the run's inputs; each coalesced request's faces equal to the direct
+   ``get_batch`` of its batch and each batch-1 request's to ``get()``
+   (bbox atol 1e-2, embeddings atol 1e-3); (b) ``tools.exp_convergence``
+   at its defaults: w600k_mbf over 50 synthetic identities, 300 steps at
+   batch 32, held-out verification accuracy every 50 steps, which must
+   end above its step-0 value and at 0.95 or more; det_500m on 16
+   synthetic images at 320, 400 steps at batch 8, AP@0.5 through the
+   whole inference path, which must end above its step-0 value and at
+   0.90 or more; both curves and the ms of a training step; (c)
+   ``tools.bench_ingest`` on the synthetic source (camera-like 1080p
+   frames drawn at read time, no codec), 100 frames a stream, streams 1,
+   2, 4, 8: every row at streams x frames, the table with the host's
+   cores and CPU model, the decode cores a card needs at phase 13's
+   resident depth-12 frames/s; each part's seconds. The tool's 300
+   frames a stream do not fit beside the rest: run them with its own
+   entry point;
+25. one JSON line of every kernel's numbers (K1's launches are those of
+   phases 4, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22 and 24; K2's those of
    phases 7, 17, 20 and 23).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
@@ -492,6 +516,18 @@ GALLERY_SCALE = dict(
     sync_rows=1_000_000, async_rows=1_000_000,
     merge=dict(g=500_000, dups=2000, threshold=0.95),
     budget=dict(rows=1_000_000, queries=256))
+# phase 24: the tools' defaults: (a) exp_microbatch (requests, threads,
+# image side, the collector's wait, the models, the detector's input);
+# (b) exp_convergence (steps, eval interval, batches, the
+# detector's side) and the floors its last points must reach (the JAX
+# record: 1.00 and 0.979); (c) bench_ingest on the synthetic source, 100
+# frames a stream where the tool takes 300 (its defaults run alone)
+HOST_TOOLS = dict(
+    microbatch=dict(requests=64, threads=16, size=640, max_wait_ms=4.0,
+                    det="det_10g", rec="w600k_r50", det_size=(640, 640)),
+    convergence=dict(arc_steps=300, det_steps=400, eval_every=50, batch=32,
+                     det_batch=8, size=320, min_accuracy=0.95, min_ap=0.90),
+    ingest=dict(res=(1920, 1080), frames=100, streams=(1, 2, 4, 8)))
 TRAIN_DET = dict(
     cmp=dict(det="det_500m", size=640, batch=4, max_gt=8, steps=3),
     full=dict(det="det_10g", size=640, batch=32, max_gt=32, warm=3,
@@ -6230,6 +6266,172 @@ def phase_gallery_scale(torch, rep):
     return dict(launches=out["a"]["launches"] + out["b"]["launches"],
                 err=out["a"]["err"], secs=secs)
 
+# ---------------------------------------------------------------------
+# phase 24: the serving host's budget and the trainers' proof, through the
+# port's tools: concurrent requests with and without coalescing, both
+# trainers memorizing, the host's ingest rates
+
+
+def host_microbatch(torch, rep):
+    """24a: ``tools.exp_microbatch`` on the card, K1 counted; each
+    coalesced request held to the direct ``get_batch`` of its batch, each
+    batch-1 request to ``get``."""
+    from scrfd_arcface_facerecognition_tpu_torch.apps import FaceAnalysis
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.tools import exp_microbatch
+
+    c = HOST_TOOLS["microbatch"]
+    app = FaceAnalysis(det_variant=c["det"], rec_variant=c["rec"], seed=0,
+                       device=DEV)
+    app.prepare(det_size=c["det_size"])
+    groups = []                  # the collector's batches, their images
+    direct = app._get_batch_direct
+
+    def recorded(imgs, max_num=0):
+        if app._microbatcher is not None:
+            groups.append(list(imgs))
+        return direct(imgs, max_num=max_num)
+
+    app._get_batch_direct = recorded
+    lines = []
+    with k1_capture() as k1_calls:
+        wa.launches = 0
+        out = exp_microbatch.run(c["requests"], c["threads"], c["size"],
+                                 c["max_wait_ms"], app=app,
+                                 emit=lines.append)
+        launches = wa.launches
+    del app._get_batch_direct
+    if launches <= 0:
+        fail("24a exp_microbatch launched K1 no time")
+    images = out["images"]
+    index = {id(im): i for i, im in enumerate(images)}
+    groups = [[index[id(im)] for im in g] for g in groups]
+    # the measured round's batches: those after the warm-up round's, which
+    # cover every request once
+    served, first = 0, len(groups)
+    for gi, g in enumerate(groups):
+        served += len(g)
+        if served == len(images):
+            first = gi + 1
+            break
+    measured = groups[first:]
+    (one_line, _, one_faces), (mb_line, _, mb_faces) = out["modes"]
+    if sorted(sum(measured, [])) != list(range(len(images))) or (
+            len(measured) != mb_line["batches"]):
+        fail(f"24a the measured round's batches {measured} do not serve "
+             f"each request once ({mb_line})")
+    bad = []
+    for g in measured:
+        want = app.get_batch([images[i] for i in g],
+                             max_num=exp_microbatch.MAX_NUM)
+        bad += [i for i, w in zip(g, want) if not faces_close(w, mb_faces[i])]
+    if bad:
+        fail(f"24a coalesced requests {bad} differ from the direct get_batch "
+             "of their batch")
+    bad = [i for i, im in enumerate(images)
+           if not faces_close(app.get(im, max_num=exp_microbatch.MAX_NUM),
+                              one_faces[i])]
+    if bad:
+        fail(f"24a batch-1 requests {bad} differ from get()")
+    err, what = k1_on_path(torch, wa, k1_calls)
+    for line in lines:
+        rep.say("24a " + json.dumps(line))
+    rep.say("24a one warm batch-1 get() alone under torch.profiler: "
+            + busy_said(device_busy(torch, lambda: app.get(
+                images[0], max_num=exp_microbatch.MAX_NUM))))
+    faces = sum(len(f) for f in mb_faces)
+    rep.say(f"24a {c['det']} + {c['rec']} at {app.dtype}, {c['requests']} "
+            f"requests of {c['size']}x{c['size']} from {c['threads']} "
+            f"threads, max_num {exp_microbatch.MAX_NUM}: coalesced "
+            f"{mb_line['requests_per_sec']} req/s against "
+            f"{one_line['requests_per_sec']} batch-1 "
+            f"({mb_line['requests_per_sec'] / one_line['requests_per_sec']:.2f}"
+            f"x), {mb_line['batches']} batches, widest {mb_line['widest']} "
+            f"(sizes {[len(g) for g in measured]}); every coalesced request "
+            f"equal to the direct get_batch of its batch and every batch-1 "
+            f"request to get() (bbox atol 1e-2, embeddings atol 1e-3; "
+            f"{faces} faces); K1 {launches} launches, vs plain on the run's "
+            f"inputs, {what}: max abs err {err:.6g} u8 (tolerance {TOL_U8})")
+    return dict(launches=launches, err=err, lines=lines)
+
+
+def hold_learning(curve, floor, what):
+    """A curve [(step, value), ...] learned: its last value above its
+    step-0 value and at least ``floor``."""
+    first, last = curve[0][1], curve[-1][1]
+    if not (last > first and last >= floor):
+        fail(f"24b {what} did not learn: {curve} (the last value must be "
+             f"above step 0's {first} and at least {floor})")
+
+
+def host_convergence(torch, rep):
+    """24b: ``tools.exp_convergence`` at its defaults on the card, both
+    curves held to the floors of ``HOST_TOOLS``."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import exp_convergence
+
+    c = HOST_TOOLS["convergence"]
+    lines = []
+    arc = exp_convergence.run_arcface(c["arc_steps"], c["eval_every"],
+                                      c["batch"], device=DEV,
+                                      emit=lines.append)
+    det = exp_convergence.run_scrfd(c["det_steps"], c["eval_every"],
+                                    c["det_batch"], size=c["size"],
+                                    device=DEV, emit=lines.append)
+    for line in lines:
+        rep.say("24b " + json.dumps(line))
+    hold_learning(arc["curve"], c["min_accuracy"],
+                  "ArcFace held-out verification accuracy")
+    hold_learning(det["curve"], c["min_ap"], "SCRFD AP@0.5")
+    rep.say(f"24b w600k_mbf over 50 identities, batch {c['batch']}, "
+            f"{c['arc_steps']} steps: accuracy {arc['curve'][0][1]:.4f} -> "
+            f"{arc['curve'][-1][1]:.4f} (floor {c['min_accuracy']}), "
+            f"{arc['ms_step']:.3f} ms a step, {arc['elapsed_s']:.1f} s; "
+            f"det_500m at {c['size']}, batch {c['det_batch']}, "
+            f"{c['det_steps']} steps: AP@0.5 {det['curve'][0][1]:.4f} -> "
+            f"{det['curve'][-1][1]:.4f} (floor {c['min_ap']}), "
+            f"{det['ms_step']:.3f} ms a step, {det['elapsed_s']:.1f} s")
+    return dict(arc=arc, det=det)
+
+
+def host_ingest(torch, rep, device_fps):
+    """24c: ``tools.bench_ingest`` on the synthetic source, every row at
+    streams x frames; the core budget at this run's phase 13 frames/s."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import bench_ingest
+
+    c = HOST_TOOLS["ingest"]
+    w, h = c["res"]
+    cores = os.cpu_count() or 1
+    rows = bench_ingest.run(bench_ingest.synthetic_source(w, h, c["frames"]),
+                            w, h, c["streams"], cores)
+    for name, ns, wk, _, n in rows:
+        if n != ns * c["frames"]:
+            fail(f"24c {name} over {ns} streams ({wk}) gave {n} frames, "
+                 f"not {ns * c['frames']}")
+    text = bench_ingest.table(rows, w, h, bench_ingest.SYNTHETIC,
+                              c["frames"], cores, device_fps)
+    for line in text.splitlines():
+        if line.strip():
+            rep.say("24c " + line)
+    rep.say(f"24c the budget's card rate: phase 13's resident depth-12 "
+            f"{device_fps:.2f} frames/s")
+    return rows
+
+
+def phase_host_and_learning(torch, rep, device_fps):
+    """24: the serving host's budget and the trainers' proof."""
+    t0 = time.perf_counter()
+    out, secs = {}, {}
+    for part, run in (("a", lambda: host_microbatch(torch, rep)),
+                      ("b", lambda: host_convergence(torch, rep)),
+                      ("c", lambda: host_ingest(torch, rep, device_fps))):
+        t = time.perf_counter()
+        out[part] = run()
+        secs[part] = time.perf_counter() - t
+    rep.say(f"phase 24 took {time.perf_counter() - t0:.1f} s: "
+            + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()))
+    return dict(launches=out["a"]["launches"], err=out["a"]["err"],
+                secs=secs)
+
 def main():
     import torch
 
@@ -6333,6 +6535,10 @@ def main():
     # 23. the gallery at deployment scale
     gs = phase_gallery_scale(torch, rep)
 
+    # 24. the serving host's budget and the trainers' proof
+    hl = phase_host_and_learning(torch, rep,
+                                 bf["bench"]["frames_per_sec"])
+
     # the kernels
     t2 = gal["times"]
     kernels = [{
@@ -6341,11 +6547,12 @@ def main():
         "replaces": "scrfd_arcface_facerecognition_tpu/ops/pallas_warp.py:430",
         "launches": launches + bf["launches"] + rt["launches"]
         + ox["launches"] + cam["launches"] + web["k1"] + tr["launches"]
-        + dt["launches"] + par["k1"] + tm["launches"] + so["launches"],
+        + dt["launches"] + par["k1"] + tm["launches"] + so["launches"]
+        + hl["launches"],
         "max_abs_err": max(err3, err4, sp["err1"], fa["err"], eng["err"],
                            bf["err"], rt["err"], ox["err"], cam["err"],
                            web["err1"], tr["err"], dt["err"], par["err1"],
-                           tm["err"], so["err"]),
+                           tm["err"], so["err"], hl["err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     }, {

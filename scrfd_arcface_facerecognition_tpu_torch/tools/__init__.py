@@ -41,17 +41,35 @@ one kernel on them; ``--device cpu`` for the CPU):
 - ``exp_train_budget``: the codec's train budget against shortlist
   quality, why ``AutoGallery`` ships its ``pq_train_rows`` /
   ``pq_train_iters``.
+
+The serving host's budget and the trainers' proof, ports of the JAX
+repository's root experiments (``--device cpu`` for the CPU where the tool
+runs models):
+
+- ``exp_microbatch``: concurrent single-image ``FaceAnalysis.get`` calls,
+  one batch-1 call each against the facade's request coalescing;
+- ``exp_convergence``: both trainers memorize a synthetic set, held-out
+  verification accuracy and AP@0.5 scored through the full eval paths;
+- ``bench_ingest``: the host's decode and batch-assembly rates (raw
+  decode, the frame ring, decode threads, ``DecodePool``) and the decode
+  cores one card needs at a given frames/s.
+
+This module imports no torch when it is imported: ``bench_ingest``'s
+capture opener runs in ``DecodePool``'s decode processes, which must stay
+free of torch.
 """
+from __future__ import annotations
+
 import time
 
-import torch
 
-
-def device_ms(fn, iters: int, dev: torch.device) -> float:
+def device_ms(fn, iters: int, dev) -> float:
     """Mean ms of fn() over ``iters`` calls after a warm-up: CUDA events on
     the card, the host clock on the CPU."""
     fn()
     if dev.type == "cuda":
+        import torch
+
         torch.cuda.synchronize(dev)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
@@ -67,7 +85,10 @@ def device_ms(fn, iters: int, dev: torch.device) -> float:
     return (time.perf_counter() - t) * 1e3 / iters
 
 
-def synchronize(dev: torch.device) -> None:
-    """Wait for the card to finish its queued work; nothing on the CPU."""
+def synchronize(dev) -> None:
+    """Wait for the card (a ``torch.device``) to finish its queued work;
+    nothing on the CPU."""
     if dev.type == "cuda":
+        import torch
+
         torch.cuda.synchronize(dev)

@@ -73,3 +73,23 @@ def slow_opener(source):
     delay, rest = source.split(":", 1)
     time.sleep(float(delay))
     return seeded_opener(rest + ":24")
+
+
+def ingest_probe(source):
+    """``tools.bench_ingest.open_source`` called inside the worker on
+    ``source``: its frames, the first reporting in channel 0 whether torch
+    was imported there and in channel 1 whether the opener's module was."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools.bench_ingest import (
+        open_source)
+
+    cap = open_source(source)
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame)
+    frames[0][0, 0, 0] = "torch" in sys.modules
+    frames[0][0, 0, 1] = ("scrfd_arcface_facerecognition_tpu_torch.tools."
+                          "bench_ingest" in sys.modules)
+    return FrameCapture(frames)

@@ -41,7 +41,9 @@ def test_import_leaves_no_jax_in_sys_modules():
         "       'tools.parity_harness', 'tools.check_ui_js',\n"
         "       'tools.dryrun_multichip', 'tools.release_check',\n"
         "       'tools.exp_merge_1m', 'tools.exp_train_budget',\n"
-        "       'tools.exp_migration', 'tools.exp_pq_scale')\n"
+        "       'tools.exp_migration', 'tools.exp_pq_scale',\n"
+        "       'tools.exp_microbatch', 'tools.exp_convergence',\n"
+        "       'tools.bench_ingest')\n"
         "bad += [m for m in new if p.__name__ + '.' + m not in sys.modules]\n"
         "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
@@ -97,7 +99,9 @@ def test_no_module_of_the_port_imports_jax_flax_or_the_jax_package():
                 "tools/parity_harness.py", "tools/check_ui_js.py",
                 "tools/dryrun_multichip.py", "tools/release_check.py",
                 "tools/exp_merge_1m.py", "tools/exp_train_budget.py",
-                "tools/exp_migration.py", "tools/exp_pq_scale.py"):
+                "tools/exp_migration.py", "tools/exp_pq_scale.py",
+                "tools/exp_microbatch.py", "tools/exp_convergence.py",
+                "tools/bench_ingest.py"):
         assert mod in names, mod
     for path in files:
         bad = set(_imported_roots(path)) & set(_FORBIDDEN)
@@ -250,7 +254,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from scrfd_arcface_facerecognition_tpu_torch.train import (
         ArcFaceTrainer, SCRFDTrainer)
     from scrfd_arcface_facerecognition_tpu_torch.tools import (
-        export_onnx, train_arcface, train_scrfd)
+        exp_convergence, exp_microbatch, export_onnx, train_arcface,
+        train_scrfd)
 
     for make in (FacePipeline, Detector, Embedder, FaceAnalysis,
                  lambda: Detector(onnx_path="det_500m.onnx"),
@@ -276,7 +281,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: SCRFDTrainer(model=build_scrfd("det_500m")),
                  lambda: train_scrfd.main(["--synthetic", "1"]),
                  lambda: export_onnx.main(["--variant", "w600k_mbf",
-                                           "--out", os.devnull])):
+                                           "--out", os.devnull]),
+                 lambda: exp_microbatch.main([]),
+                 lambda: exp_convergence.main(["--only", "arc"]),
+                 lambda: exp_convergence.main(["--only", "det"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert resolve_device("cpu").type == "cpu"

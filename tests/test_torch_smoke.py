@@ -1669,3 +1669,150 @@ def test_gallery_scale_phase_fails_on_a_top1_below_the_count(monkeypatch,
         with pytest.raises(RuntimeError, match="23b top-1 self 15/16 after "
                                                "the synchronous crossing"):
             chip_smoke.scale_migration(torch, rep)
+
+
+def _host_tools_on_the_cpu(monkeypatch):
+    """Phase 24 at small sizes: exp_microbatch with det_500m + w600k_mbf
+    at 128 (8 requests, 4 threads), exp_convergence for 2 steps of small
+    models ("w600k_mbf" and "det_500m" swapped for narrow configs, SCRFD at
+    128), bench_ingest's synthetic source at 64 x 48, 12 frames, streams 1
+    and 2; K1 counted where the wrapper would count it."""
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+    from scrfd_arcface_facerecognition_tpu_torch.models import arcface, scrfd
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    rep, said = _no_card(monkeypatch, wa)
+    crops = ops.warp_align_crops
+
+    def counted(*a, **k):
+        wa.launches += 1
+        return crops(*a, **k)
+
+    monkeypatch.setattr(ops, "warp_align_crops", counted)
+    monkeypatch.setitem(arcface.ARCFACE_CONFIGS, "w600k_mbf",
+                        arcface.ArcFaceConfig(
+                            name="w600k_mbf", arch="mobilefacenet",
+                            mbf_blocks=(1, 1, 1, 1), mbf_stem_filters=8,
+                            mbf_stem_dw_groups=8,
+                            mbf_stage_filters=(8, 16, 16),
+                            mbf_down_groups=(16, 16, 32),
+                            mbf_res_groups=(16,) * 4, mbf_sep_filters=32))
+    monkeypatch.setitem(scrfd.SCRFD_CONFIGS, "det_500m", scrfd.SCRFDConfig(
+        name="det_500m", stem_filters=8, stage_blocks=(1, 1, 1, 1),
+        stage_filters=(8, 8, 16, 16), neck_filters=8, head_stacks=1,
+        head_filters=16))
+    monkeypatch.setattr(chip_smoke, "HOST_TOOLS", dict(
+        microbatch=dict(requests=8, threads=4, size=128, max_wait_ms=4.0,
+                        det="det_500m", rec="w600k_mbf",
+                        det_size=(128, 128)),
+        convergence=dict(arc_steps=2, det_steps=2, eval_every=1, batch=8,
+                         det_batch=8, size=128, min_accuracy=0.95,
+                         min_ap=0.90),
+        ingest=dict(res=(64, 48), frames=12, streams=(1, 2))))
+    return rep, said
+
+
+def test_host_and_learning_phase_rehearsed_on_the_cpu(monkeypatch):
+    """Phase 24: both request modes' lines, K1 counted over the run and
+    held to its plain version, each request held to its direct call; both
+    curves said and handed to ``hold_learning`` (2 steps cannot learn, so
+    here it only records them); the ingest table with every row at
+    streams x frames and the budget at the given frames/s; each part's
+    seconds."""
+    rep, said = _host_tools_on_the_cpu(monkeypatch)
+    held = []
+    monkeypatch.setattr(chip_smoke, "hold_learning",
+                        lambda curve, floor, what: held.append(
+                            (what, [s for s, _ in curve], floor)))
+    out = chip_smoke.phase_host_and_learning(torch, rep, 841.22)
+    assert out["launches"] > 0 and out["err"] == 0.0
+    assert set(out["secs"]) == {"a", "b", "c"}
+    assert held == [("ArcFace held-out verification accuracy", [0, 1, 2],
+                     0.95), ("SCRFD AP@0.5", [0, 1, 2], 0.90)]
+    text = "\n".join(said)
+    for start in ('24a {"mode": "batch-1 per request", "requests_per_sec": ',
+                  '24a {"mode": "microbatched", "requests_per_sec": ',
+                  "every coalesced request equal to the direct get_batch",
+                  "vs plain on the run's inputs",
+                  "24a one warm batch-1 get() alone under torch.profiler: "
+                  "not measured",
+                  '24b {"curve": "arcface_verification_accuracy", "step": 0',
+                  '24b {"curve": "scrfd_ap50", "step": 2, "value": ',
+                  "ms a step", "24c ## Ingest scaling (64x48 synthetic "
+                  "frames drawn at read time, no codec, 12 frames/stream",
+                  "24c | DecodePool [synthetic, no codec] | 2 | 2 proc |",
+                  "24c Core budget: zero-copy single-stream feed = ",
+                  "a card at 841 fps needs",
+                  "phase 13's resident depth-12 841.22 frames/s",
+                  "phase 24 took"):
+        assert start in text, start
+
+
+def test_hold_learning_needs_a_rise_to_the_floor():
+    chip_smoke.hold_learning([(0, 0.6), (50, 0.8), (300, 0.96)], 0.95, "a")
+    for curve in ([(0, 0.6), (300, 0.6)], [(0, 0.96), (300, 0.96)],
+                  [(0, 0.5), (300, 0.94)]):
+        with pytest.raises(RuntimeError, match="24b a did not learn"):
+            chip_smoke.hold_learning(curve, 0.95, "a")
+
+
+def test_host_phase_fails_on_a_k1_one_u8_off(monkeypatch):
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    rep, _ = _host_tools_on_the_cpu(monkeypatch)
+    plain = wa.warp_align_plain
+    monkeypatch.setattr(wa, "warp_align_crops",
+                        lambda *a, **k: plain(*a, **k) + 1 / 127.5)
+    with pytest.raises(RuntimeError, match="warp_align: max abs err 1.0"):
+        chip_smoke.host_microbatch(torch, rep)
+
+
+def test_host_phase_fails_when_k1_is_launched_no_time(monkeypatch):
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    rep, _ = _host_tools_on_the_cpu(monkeypatch)
+    monkeypatch.setattr(ops, "warp_align_crops", wa.warp_align_crops)
+    with pytest.raises(RuntimeError,
+                       match="24a exp_microbatch launched K1 no time"):
+        chip_smoke.host_microbatch(torch, rep)
+
+
+def test_host_phase_fails_on_a_flat_curve(monkeypatch):
+    from scrfd_arcface_facerecognition_tpu_torch.tools import exp_convergence
+
+    rep, _ = _host_tools_on_the_cpu(monkeypatch)
+
+    def curve(values):
+        return lambda *a, **k: dict(
+            curve=[(50 * i, v) for i, v in enumerate(values)],
+            losses=[1.0], ms_step=1.0, elapsed_s=1.0)
+
+    monkeypatch.setattr(exp_convergence, "run_arcface",
+                        curve([0.6, 0.6, 0.6]))
+    monkeypatch.setattr(exp_convergence, "run_scrfd", curve([0.0, 0.95]))
+    with pytest.raises(RuntimeError, match=r"24b ArcFace held-out "
+                                           r"verification accuracy did not "
+                                           r"learn: \[\(0, 0.6\)"):
+        chip_smoke.host_convergence(torch, rep)
+    monkeypatch.setattr(exp_convergence, "run_arcface", curve([0.6, 1.0]))
+    monkeypatch.setattr(exp_convergence, "run_scrfd", curve([0.0, 0.0]))
+    with pytest.raises(RuntimeError, match="24b SCRFD AP@0.5 did not learn"):
+        chip_smoke.host_convergence(torch, rep)
+
+
+def test_host_phase_fails_on_an_ingest_row_short_of_frames(monkeypatch):
+    from scrfd_arcface_facerecognition_tpu_torch.tools import bench_ingest
+
+    rep, _ = _host_tools_on_the_cpu(monkeypatch)
+    multistream = bench_ingest.bench_multistream
+
+    def one_short(source, n_streams):
+        fps, n = multistream(source, n_streams)
+        return fps, n - (n_streams == 2)
+
+    monkeypatch.setattr(bench_ingest, "bench_multistream", one_short)
+    with pytest.raises(RuntimeError, match=r"24c MultiStreamReader \(threads, "
+                                           r"GIL\) over 2 streams \(thread\) "
+                                           r"gave 23 frames, not 24"):
+        chip_smoke.host_ingest(torch, rep, 841.22)
