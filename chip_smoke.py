@@ -356,9 +356,30 @@ non-zero exit if it fails:
    resident depth-12 frames/s; each part's seconds. The tool's 300
    frames a stream do not fit beside the rest: run them with its own
    entry point;
-25. one JSON line of every kernel's numbers (K1's launches are those of
-   phases 4, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22 and 24; K2's those of
-   phases 7, 17, 20 and 23).
+25. the measurement tools (``PROFILE_TOOLS``), the port's counterparts of
+   the JAX repository's profiling scripts, each printing its rows: (a)
+   ``tools.profile_stages`` at its default 32 frames and at 96 (the bf16
+   bench path's batch), one seeded det_10g + w600k_r50 pipeline at bf16:
+   the two full stages, e2e ms and frames/s, then every sub-stage in the
+   pipeline's order, K1's launch count reset just before and read just
+   after (none fails) and K1 against its plain version on the runs'
+   inputs; (b) ``tools.exp_r50`` (w600k_r50 at 960 crops: ms, TFLOPS
+   from ``FlopCounterMode``, the batch sweep, the stage groups,
+   ``channels_last``, f32 with and without TF32), its full prefix plus the
+   head equal to the forward; (c) ``tools.exp_r50b`` on the same model:
+   the four heads held to the production one at float32 (1e-4 of its
+   largest value, TF32 off), then timed alone and in the full model at
+   B = 960 and 480; (d) ``tools.exp_scrfd`` (det_10g at B = 32, 640 x
+   640, its parts, the padded widths, f32), backbone -> neck -> head
+   within 2 bf16 ulps of ``SCRFDNet``'s outputs; (e) ``tools.trace_ops
+   --what backbone``: the traced iterations' device ops, a non-empty table
+   with a positive total; (f) ``tools.exp_int8`` (the im2col GEMM in int8
+   and bf16, cuDNN's bf16 conv, the 8192 GEMM, the 28-conv chain), every
+   int8 conv and the int8 GEMM exactly equal to float64 on the card; each
+   part's seconds;
+26. one JSON line of every kernel's numbers (K1's launches are those of
+   phases 4, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 24 and 25; K2's those
+   of phases 7, 17, 20 and 23).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside it, the script exits non-zero and prints no
@@ -528,6 +549,18 @@ HOST_TOOLS = dict(
     convergence=dict(arc_steps=300, det_steps=400, eval_every=50, batch=32,
                      det_batch=8, size=320, min_accuracy=0.95, min_ap=0.90),
     ingest=dict(res=(1920, 1080), frames=100, streams=(1, 2, 4, 8)))
+# phase 25: the measurement tools at their defaults (profile_stages also at
+# 96 frames, the bf16 bench path's batch); check_n crops for exp_r50's
+# prefix check
+PROFILE_TOOLS = dict(
+    profile_stages=dict(batches=(32, 96), iters=20),
+    exp_r50=dict(n=960, sweep=(240, 480), iters=10, check_n=64),
+    exp_r50b=dict(batches=(960, 480)),
+    exp_scrfd=dict(batch=32, iters=20, size=640),
+    trace_ops=dict(what="backbone", batch=32, iters=5, top=30),
+    exp_int8=dict(convs=((64, 160, 160, 56, 56), (64, 160, 160, 128, 128),
+                         (32, 80, 80, 256, 256)),
+                  matmul=8192, chain_batch=16))
 TRAIN_DET = dict(
     cmp=dict(det="det_500m", size=640, batch=4, max_gt=8, steps=3),
     full=dict(det="det_10g", size=640, batch=32, max_gt=32, warm=3,
@@ -6432,6 +6465,149 @@ def phase_host_and_learning(torch, rep, device_fps):
     return dict(launches=out["a"]["launches"], err=out["a"]["err"],
                 secs=secs)
 
+# ---------------------------------------------------------------------
+# phase 25: the measurement tools, the port's counterparts of the JAX
+# repository's profiling scripts, each at its defaults with its own check
+
+
+def tools_profile(torch, rep):
+    """25a: ``tools.profile_stages`` at each batch of ``PROFILE_TOOLS``
+    (one seeded pipeline), K1 counted over the runs and held to its plain
+    version on their inputs."""
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.tools import profile_stages
+
+    c = PROFILE_TOOLS["profile_stages"]
+    pipe = profile_stages.make_pipeline(DEV)
+    runs = {}
+    with k1_capture() as k1_calls:
+        wa.launches = 0
+        for b in c["batches"]:
+            lines = []
+            runs[b] = profile_stages.run(b, c["iters"], pipe=pipe,
+                                         emit=lines.append)
+            for line in lines:
+                rep.say(f"25a B={b} {line}")
+        launches = wa.launches
+    if launches <= 0:
+        fail("25a profile_stages launched K1 no time")
+    err, what = k1_on_path(torch, wa, k1_calls)
+    rep.say(f"25a K1 {launches} launches over profile_stages at batches "
+            f"{list(c['batches'])}, vs plain on the runs' inputs, {what}: "
+            f"max abs err {err:.6g} u8 (tolerance {TOL_U8})")
+    return dict(launches=launches, err=err, runs=runs)
+
+
+def tools_r50(torch, rep):
+    """25b: ``tools.exp_r50``, then its full prefix plus head held to the
+    forward; 25c: ``tools.exp_r50b`` on the same model (its four heads
+    held to A inside the tool)."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        exp_r50, exp_r50b)
+
+    c = PROFILE_TOOLS["exp_r50"]
+    model = exp_r50.make_model(DEV)
+    lines = []
+    r50 = exp_r50.run(c["n"], c["sweep"], c["iters"], model=model,
+                      emit=lines.append)
+    x = torch.from_numpy(exp_r50.make_input(c["check_n"])).to(DEV)
+    gap = exp_r50.check(model, x)
+    for line in lines:
+        rep.say("25b " + line)
+    if gap != 0:
+        fail(f"25b exp_r50: stem..layer4 then the head differs from the "
+             f"forward by {gap}")
+    rep.say(f"25b the full prefix plus the head equals the forward on "
+            f"{c['check_n']} crops (max abs diff {gap})")
+    lines = []
+    r50b = exp_r50b.run(PROFILE_TOOLS["exp_r50b"]["batches"], model=model,
+                        emit=lines.append)
+    for line in lines:
+        rep.say("25c " + line)
+    return dict(r50=r50, r50b=r50b)
+
+
+def tools_scrfd(torch, rep):
+    """25d: ``tools.exp_scrfd``; backbone -> neck -> head held to
+    ``SCRFDNet``'s outputs within 2 bf16 ulps of each kind's largest
+    magnitude."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import exp_scrfd
+
+    c = PROFILE_TOOLS["exp_scrfd"]
+    lines = []
+    out = exp_scrfd.run(c["batch"], c["iters"], c["size"], device=DEV,
+                        emit=lines.append)
+    for line in lines:
+        rep.say("25d " + line)
+    whole, head = out["outputs"]
+    gaps = exp_scrfd.compose_gap(whole, head)
+    tol = {k: 2 * bf16_ulp(max(float(a.abs().max()) for a in whole[k]))
+           for k in whole}
+    bad = {k: (g, tol[k]) for k, g in gaps.items() if not g <= tol[k]}
+    if bad:
+        fail(f"25d exp_scrfd: backbone -> neck -> head differs from "
+             f"SCRFDNet past 2 bf16 ulps: {bad}")
+    rep.say("25d backbone -> neck -> head composes to SCRFDNet's outputs: "
+            + ", ".join(f"{k} max abs diff {g:.3g} (2 ulps {tol[k]:.3g})"
+                        for k, g in gaps.items()))
+    return out["rows"]
+
+
+def tools_trace(torch, rep):
+    """25e: ``tools.trace_ops``: a non-empty table of device ops with a
+    positive total."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import trace_ops
+
+    c = PROFILE_TOOLS["trace_ops"]
+    lines = []
+    res = trace_ops.run(c["what"], c["batch"], c["iters"], c["top"],
+                        device=DEV, emit=lines.append)
+    for line in lines:
+        rep.say("25e " + line)
+    if not res["top"] or not res["total_ms"] > 0:
+        fail(f"25e trace_ops: no device op in the trace ({res['path']})")
+    return res
+
+
+def tools_int8(torch, rep):
+    """25f: ``tools.exp_int8``; every int8 conv (the three geometries and
+    the chain's) and the int8 GEMM exactly equal to float64 on the card."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import exp_int8
+
+    c = PROFILE_TOOLS["exp_int8"]
+    lines = []
+    out = exp_int8.run(c["convs"], c["matmul"], c["chain_batch"],
+                       device=DEV, check=True, emit=lines.append)
+    for line in lines:
+        rep.say("25f " + line)
+    bad = {k: v for k, v in out["exact"].items() if v != 0}
+    if bad:
+        fail(f"25f exp_int8: int8 results differ from float64: {bad}")
+    rep.say("25f every int8 conv (" + str(len(c["convs"])) + " geometries, "
+            + str(len(exp_int8.chain_shapes()))
+            + " chain convs) and the int8 GEMM equal float64 on the card "
+            "exactly")
+    return out
+
+
+def phase_measure_tools(torch, rep):
+    """25: the measurement tools at their defaults, each with its check;
+    K1 counted over profile_stages."""
+    t0 = time.perf_counter()
+    out, secs = {}, {}
+    for part, run in (("a", tools_profile), ("b-c", tools_r50),
+                      ("d", tools_scrfd), ("e", tools_trace),
+                      ("f", tools_int8)):
+        t = time.perf_counter()
+        out[part] = run(torch, rep)
+        secs[part] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+    rep.say(f"phase 25 took {time.perf_counter() - t0:.1f} s: "
+            + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()))
+    return dict(launches=out["a"]["launches"], err=out["a"]["err"],
+                out=out, secs=secs)
+
+
 def main():
     import torch
 
@@ -6539,7 +6715,10 @@ def main():
     hl = phase_host_and_learning(torch, rep,
                                  bf["bench"]["frames_per_sec"])
 
-    # the kernels
+    # 25. the measurement tools
+    mt = phase_measure_tools(torch, rep)
+
+    # 26. the kernels
     t2 = gal["times"]
     kernels = [{
         "name": wa.NAME, "route": "cuda",
@@ -6548,11 +6727,11 @@ def main():
         "launches": launches + bf["launches"] + rt["launches"]
         + ox["launches"] + cam["launches"] + web["k1"] + tr["launches"]
         + dt["launches"] + par["k1"] + tm["launches"] + so["launches"]
-        + hl["launches"],
+        + hl["launches"] + mt["launches"],
         "max_abs_err": max(err3, err4, sp["err1"], fa["err"], eng["err"],
                            bf["err"], rt["err"], ox["err"], cam["err"],
                            web["err1"], tr["err"], dt["err"], par["err1"],
-                           tm["err"], so["err"], hl["err"]),
+                           tm["err"], so["err"], hl["err"], mt["err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     }, {

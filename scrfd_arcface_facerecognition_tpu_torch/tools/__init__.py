@@ -54,12 +54,37 @@ runs models):
   decode, the frame ring, decode threads, ``DecodePool``) and the decode
   cores one card needs at a given frames/s.
 
+The measurement tools, ports of the JAX repository's root profiling
+scripts that ask the card what those scripts asked the TPU (each prints
+the JAX tool's rows under its labels, the card's name and power limit
+first, times device work with CUDA events through ``device_ms`` and
+returns its rows; ``--device cpu`` for the CPU):
+
+- ``profile_stages``: the e2e path's two stages and their sub-stages in
+  the order ``FacePipeline`` runs them (letterbox, normalize, SCRFD,
+  decode, top-k + NMS + compaction, canvas -> u8, then the warp K1, the
+  r50 forward, l2 + match);
+- ``exp_r50``: iResNet-50 at 960 crops: TFLOPS from
+  ``FlopCounterMode``, the stage groups as cumulative prefixes, a batch
+  sweep, ``channels_last`` against NCHW, the f32 control;
+- ``exp_r50b``: four equal formulations of the embedding head (the
+  production NHWC flatten, an einsum, a 7x7 conv, an NCHW flatten with
+  the weight's rows permuted), alone and in the full model;
+- ``exp_scrfd``: det_10g's backbone, neck and head alone, two padded
+  widths and the f32 control;
+- ``trace_ops``: a traced forward's top device ops, read back from the
+  Chrome trace ``utils.profiling.trace`` writes;
+- ``exp_int8``: int8 against bf16 on det_10g's conv geometry, each conv
+  the same im2col GEMM (``torch._int_mm`` for int8), cuDNN's bf16 conv
+  beside them, the 8192 GEMM and the 28-conv backbone-shaped chain.
+
 This module imports no torch when it is imported: ``bench_ingest``'s
 capture opener runs in ``DecodePool``'s decode processes, which must stay
 free of torch.
 """
 from __future__ import annotations
 
+import subprocess
 import time
 
 
@@ -92,3 +117,17 @@ def synchronize(dev) -> None:
         import torch
 
         torch.cuda.synchronize(dev)
+
+
+def card_line(dev) -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (the
+    first card); on the CPU a line that says there is none."""
+    if dev.type != "cuda":
+        return "no card: --device cpu"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]

@@ -43,7 +43,9 @@ def test_import_leaves_no_jax_in_sys_modules():
         "       'tools.exp_merge_1m', 'tools.exp_train_budget',\n"
         "       'tools.exp_migration', 'tools.exp_pq_scale',\n"
         "       'tools.exp_microbatch', 'tools.exp_convergence',\n"
-        "       'tools.bench_ingest')\n"
+        "       'tools.bench_ingest', 'tools.profile_stages',\n"
+        "       'tools.exp_r50', 'tools.exp_r50b', 'tools.exp_scrfd',\n"
+        "       'tools.trace_ops', 'tools.exp_int8')\n"
         "bad += [m for m in new if p.__name__ + '.' + m not in sys.modules]\n"
         "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
@@ -101,7 +103,10 @@ def test_no_module_of_the_port_imports_jax_flax_or_the_jax_package():
                 "tools/exp_merge_1m.py", "tools/exp_train_budget.py",
                 "tools/exp_migration.py", "tools/exp_pq_scale.py",
                 "tools/exp_microbatch.py", "tools/exp_convergence.py",
-                "tools/bench_ingest.py"):
+                "tools/bench_ingest.py", "tools/profile_stages.py",
+                "tools/exp_r50.py", "tools/exp_r50b.py",
+                "tools/exp_scrfd.py", "tools/trace_ops.py",
+                "tools/exp_int8.py"):
         assert mod in names, mod
     for path in files:
         bad = set(_imported_roots(path)) & set(_FORBIDDEN)
@@ -254,7 +259,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from scrfd_arcface_facerecognition_tpu_torch.train import (
         ArcFaceTrainer, SCRFDTrainer)
     from scrfd_arcface_facerecognition_tpu_torch.tools import (
-        exp_convergence, exp_microbatch, export_onnx, train_arcface,
+        exp_convergence, exp_int8, exp_microbatch, exp_r50, exp_r50b,
+        exp_scrfd, export_onnx, profile_stages, trace_ops, train_arcface,
         train_scrfd)
 
     for make in (FacePipeline, Detector, Embedder, FaceAnalysis,
@@ -284,7 +290,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                            "--out", os.devnull]),
                  lambda: exp_microbatch.main([]),
                  lambda: exp_convergence.main(["--only", "arc"]),
-                 lambda: exp_convergence.main(["--only", "det"])):
+                 lambda: exp_convergence.main(["--only", "det"]),
+                 lambda: profile_stages.main([]), lambda: exp_r50.main([]),
+                 lambda: exp_r50b.main([]), lambda: exp_scrfd.main([]),
+                 lambda: trace_ops.main([]), lambda: exp_int8.main([])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert resolve_device("cpu").type == "cpu"

@@ -1816,3 +1816,171 @@ def test_host_phase_fails_on_an_ingest_row_short_of_frames(monkeypatch):
                                            r"GIL\) over 2 streams \(thread\) "
                                            r"gave 23 frames, not 24"):
         chip_smoke.host_ingest(torch, rep, 841.22)
+
+
+def _measure_tools_on_the_cpu(monkeypatch):
+    """Phase 25 at small sizes: "det_10g" and "w600k_r50" swapped for
+    narrow configs, profile_stages on 2 and 3 frames of 270 x 480,
+    exp_r50 on 8 crops, exp_r50b at B = 4 and 2, exp_scrfd at 128, one
+    traced iteration, exp_int8 on one small conv, a 64 GEMM and the chain
+    at a sixteenth of its sides; K1 counted where the wrapper would count
+    it."""
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+    from scrfd_arcface_facerecognition_tpu_torch.models import arcface, scrfd
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        exp_int8, profile_stages)
+
+    rep, said = _no_card(monkeypatch, wa)
+    crops = ops.warp_align_crops
+
+    def counted(*a, **k):
+        wa.launches += 1
+        return crops(*a, **k)
+
+    monkeypatch.setattr(ops, "warp_align_crops", counted)
+    monkeypatch.setitem(arcface.ARCFACE_CONFIGS, "w600k_r50",
+                        arcface.ArcFaceConfig(
+                            name="w600k_r50", arch="iresnet",
+                            stage_blocks=(1, 1, 1, 1),
+                            stage_filters=(8, 8, 16, 16)))
+    monkeypatch.setitem(scrfd.SCRFD_CONFIGS, "det_10g", scrfd.SCRFDConfig(
+        name="det_10g", stem_filters=8, stage_blocks=(1, 1, 1, 1),
+        stage_filters=(8, 8, 16, 16), neck_filters=8, head_stacks=1,
+        head_filters=16))
+    monkeypatch.setattr(profile_stages, "SETTINGS", dict(
+        profile_stages.SETTINGS, frame_hw=(270, 480)))
+    monkeypatch.setattr(chip_smoke, "PROFILE_TOOLS", dict(
+        profile_stages=dict(batches=(2, 3), iters=1),
+        exp_r50=dict(n=8, sweep=(2, 4), iters=1, check_n=4),
+        exp_r50b=dict(batches=(4, 2)),
+        exp_scrfd=dict(batch=1, iters=1, size=128),
+        trace_ops=dict(what="backbone", batch=1, iters=1, top=5),
+        exp_int8=dict(convs=((2, 8, 8, 28, 28),), matmul=64,
+                      chain_batch=1)))
+    shapes = exp_int8.chain_shapes()
+    monkeypatch.setattr(exp_int8, "chain_shapes", lambda: [
+        (h // 16, w // 16, ci, co, s) for h, w, ci, co, s in shapes])
+    return rep, said
+
+
+def test_measure_tools_phase_rehearsed_on_the_cpu(monkeypatch):
+    """Phase 25: every tool's rows said under its part's tag, K1 counted
+    over profile_stages and held to its plain version, each tool's check
+    said, each part's seconds."""
+    rep, said = _measure_tools_on_the_cpu(monkeypatch)
+    out = chip_smoke.phase_measure_tools(torch, rep)
+    # K1 in the embed + match stage and the warp row, 3 calls each a
+    # batch at iters=1 (the row's first call, the warm-up, the timed one)
+    assert out["launches"] == 2 * 6 and out["err"] == 0.0
+    assert set(out["secs"]) == {"a", "b-c", "d", "e", "f"}
+    text = "\n".join(said)
+    for start in ("25a B=2 detect (full stage 1)", "25a B=3   faces=",
+                  "25a B=3   warp (K1)", "25a B=2   arcface normalize"
+                  "                        fused in K1",
+                  "25a K1 12 launches over profile_stages at batches [2, 3],"
+                  " vs plain on the runs' inputs, 2 calls",
+                  "25b [1] r50 bf16 NCHW B=8: ", "25b [3] channels_last: ",
+                  "25b [4] f32 (TF32 off): ",
+                  "25b the full prefix plus the head equals the forward on 4"
+                  " crops (max abs diff 0.0)",
+                  "25c variant agreement ok", "25c [full D] B=2: ",
+                  "25d stem: plain 3x3 stride 2",
+                  "25d det_10g widths 64/128/256",
+                  "25d backbone -> neck -> head composes to SCRFDNet's "
+                  "outputs: scores max abs diff 0",
+                  "25e wall: ", "25e trace trace.json: ",
+                  "CPU-op (--device cpu) time",
+                  "25f int8 conv B2 8x8 C28F28: ", "25f chain speedup",
+                  "25f every int8 conv (1 geometries, 28 chain convs) and the"
+                  " int8 GEMM equal float64 on the card exactly",
+                  "phase 25 took"):
+        assert start in text, start
+
+
+def test_measure_phase_fails_on_a_k1_one_u8_off(monkeypatch):
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    rep, _ = _measure_tools_on_the_cpu(monkeypatch)
+    plain = wa.warp_align_plain
+    monkeypatch.setattr(wa, "warp_align_crops",
+                        lambda *a, **k: plain(*a, **k) + 1 / 127.5)
+    with pytest.raises(RuntimeError, match="warp_align: max abs err 1.0"):
+        chip_smoke.tools_profile(torch, rep)
+
+
+def test_measure_phase_fails_when_k1_is_launched_no_time(monkeypatch):
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    rep, _ = _measure_tools_on_the_cpu(monkeypatch)
+    monkeypatch.setattr(ops, "warp_align_crops", wa.warp_align_crops)
+    with pytest.raises(RuntimeError,
+                       match="25a profile_stages launched K1 no time"):
+        chip_smoke.tools_profile(torch, rep)
+
+
+@pytest.mark.parametrize("fault", ["r50_prefix", "r50b_head", "scrfd_parts",
+                                   "no_trace_events", "int8_inexact"])
+def test_measure_phase_fails_on_each_tools_check(monkeypatch, fault):
+    """Each part of phase 25 fails on its own check: a prefix plus head off
+    the forward, a head variant off A, parts that do not compose, a trace
+    with no op event, an int8 result off float64."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        exp_int8, exp_r50, exp_r50b, exp_scrfd, trace_ops)
+
+    rep, _ = _measure_tools_on_the_cpu(monkeypatch)
+    if fault == "r50_prefix":
+        monkeypatch.setattr(exp_r50, "check", lambda model, x: 0.0625)
+        run, match = chip_smoke.tools_r50, "25b exp_r50: stem..layer4 then"
+    elif fault == "r50b_head":
+        head_c = exp_r50b.head_c
+        monkeypatch.setitem(exp_r50b.HEADS, "C", lambda x, w, b: head_c(
+            x, w, b) * 1.001)
+        run, match = chip_smoke.tools_r50, r"exp_r50b: head variants \{'C'"
+    elif fault == "scrfd_parts":
+        monkeypatch.setattr(exp_scrfd, "compose_gap", lambda whole, head: {
+            k: 1.0 for k in whole})
+        run, match = chip_smoke.tools_scrfd, "25d exp_scrfd: backbone -> "
+    elif fault == "no_trace_events":
+        monkeypatch.setattr(trace_ops, "CPU_CATS", ("none",))
+        run, match = chip_smoke.tools_trace, "holds no CPU op event"
+    else:
+        gap = exp_int8.exact_conv_gap
+        monkeypatch.setattr(exp_int8, "exact_conv_gap",
+                            lambda x, w, got: gap(x, w, got) + 1)
+        run, match = chip_smoke.tools_int8, "25f exp_int8: int8 results "
+    with pytest.raises(RuntimeError, match=match):
+        run(torch, rep)
+
+
+def test_measure_phase_runs_the_tools_defaults():
+    """Phase 25's settings are the tools' defaults (profile_stages also at
+    96 frames)."""
+    import inspect
+
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        exp_int8, exp_r50, exp_r50b, exp_scrfd, profile_stages, trace_ops)
+
+    c = chip_smoke.PROFILE_TOOLS
+
+    def default(fn, name):
+        return inspect.signature(fn).parameters[name].default
+
+    assert c["profile_stages"]["batches"] == (
+        default(profile_stages.run, "batch"), 96)
+    assert c["profile_stages"]["iters"] == default(profile_stages.run,
+                                                   "iters")
+    assert (c["exp_r50"]["n"], c["exp_r50"]["sweep"],
+            c["exp_r50"]["iters"]) == (exp_r50.CROPS, exp_r50.SWEEP, 10)
+    assert c["exp_r50b"]["batches"] == exp_r50b.BATCHES
+    assert (c["exp_scrfd"]["batch"], c["exp_scrfd"]["iters"],
+            c["exp_scrfd"]["size"]) == (32, 20, 640)
+    assert c["trace_ops"] == dict(what="backbone", batch=32, iters=5,
+                                  top=30)
+    assert c["exp_int8"] == dict(convs=exp_int8.CONVS,
+                                 matmul=exp_int8.MATMUL,
+                                 chain_batch=exp_int8.CHAIN_BATCH)
+    for fn, name, want in ((exp_scrfd.run, "batch", 32),
+                           (trace_ops.run, "what", "backbone")):
+        assert default(fn, name) == want

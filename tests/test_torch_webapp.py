@@ -122,8 +122,20 @@ def normal(v, root):
                       "Face Recognition — <backend></title>")
         return without_clock(v)
     if isinstance(v, dict):
-        return {k: normal(x, root) for k, x in without_clock(v).items()
-                if k not in _DROP}
+        out = {k: normal(x, root) for k, x in without_clock(v).items()
+               if k not in _DROP}
+        if isinstance(out.get("groups"), list) and all(
+                "person_id" in g for g in out["groups"]):
+            # the groups come ordered by match_count, then by last_seen,
+            # SQLite's CURRENT_TIMESTAMP to the second (a clock column,
+            # dropped above): persons tied on match_count fall in clock
+            # order, which two runs straddling a second boundary differ
+            # in. The match_count order stays held; ties go by id.
+            counts = [g.get("match_count", 0) for g in out["groups"]]
+            assert counts == sorted(counts, reverse=True), counts
+            out["groups"] = sorted(out["groups"], key=lambda g: (
+                -g.get("match_count", 0), g["person_id"]))
+        return out
     if isinstance(v, (list, tuple)):
         return [normal(x, root) for x in v]
     if isinstance(v, (np.floating, np.integer, np.bool_)):
