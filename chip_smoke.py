@@ -312,26 +312,32 @@ non-zero exit if it fails:
    frames, DisaggPipeline, sharded searches) and the page lint, its
    report read back; the phase's seconds;
 23. the gallery at deployment scale (``GALLERY_SCALE``), through the
-   port's tools: (a) ``tools.exp_pq_scale`` at G = 10,000,000 (640 MB of
-   codes), the query sweep 16, 64, 128, 256 in both LUT precisions, the
-   2,000,000-row dense search and the recall study, K2's launch count
-   reset just before and read just after: every id >= 0, K2 bit-equal to
-   its plain version on the 10M codes at Q = 16 in both precisions and at
-   Q = 256 in "hi" (2.56e9 scores, past 2^31; the comparison's own
-   launches not counted), each search's peak device memory and stage
-   split, top-1 same identity 1.0 with and without the rerank; (b)
+   port's tools: (a) ``tools.exp_pq_scale`` at G = 1,000,000, the query
+   sweep 16 and 256 in both LUT precisions, the 250,000-row dense search
+   and recall study, K2's launch count reset just before and read just
+   after: every id >= 0, K2 bit-equal to its plain version on the swept
+   codes at Q = 16 in both precisions and at Q = 256 in "hi" (the
+   comparison's own launches not counted), each search's peak device
+   memory and stage split, top-1 the query's identity with and without
+   the rerank for every query whose identity has a row in the gallery
+   (an identity draws about 4 rows, none for one query in ~50; at the
+   250,000 rows one of the 16 has none); then 10,000,000 codes drawn on the card (640 MB, no host
+   fill), one search at Q = 256 "hi" (2.56e9 scores, past 2^31; every id
+   >= 0) and K2 bit-equal to its plain version on the whole (Q, G); (b)
    ``tools.exp_migration``: the synchronous and the background crossing
-   at 1,000,000 rows, top-1 self 16/16 after each and on every probe
-   while the background build runs, which must not fail; (c)
-   ``tools.exp_merge_1m`` at 500,000 rows, 2,000 planted pairs, threshold
+   at 250,000 rows, top-1 self 16/16 after each and on every probe while
+   the background build runs, which must not fail; (c)
+   ``tools.exp_merge_1m`` at 200,000 rows, 2,000 planted pairs, threshold
    0.95: exactly the planted pairs, G - 2,000 groups after the
-   union-find; (d) ``tools.exp_train_budget`` at its defaults (1,000,000
-   rows, 256 queries): 256/256 at the shipped codec budget (50,000 rows,
-   10 iterations), the other rungs reported; each part's seconds. The
-   scan of (c) at its default 1,000,000 rows (127 s on an NVIDIA H100
-   80GB HBM3 at 700 W: a full sort of every (block, G) slab) and the
-   2,000,000-row synchronous crossing do not fit beside the rest; run
-   them with the tools' own entry points;
+   union-find; (d) ``tools.exp_train_budget`` at 250,000 rows, 256
+   queries: 256/256 at the shipped codec budget (50,000 rows, 10
+   iterations), the other rungs reported; each part's seconds. With
+   ``--full-scale`` (``GALLERY_SCALE_FULL``) the tools' defaults: the
+   10,000,000-row host fill and the sweep 16, 64, 128, 256 on it (K2
+   checked on its codes, the drawn gallery not built), the 2,000,000-row
+   dense search and recall study, the synchronous crossing at 1,000,000
+   and 2,000,000 rows and the background one at 1,000,000, the scan at
+   1,000,000 rows and the budget at 1,000,000;
 24. the serving host's budget and the trainers' proof (``HOST_TOOLS``),
    through the port's tools: (a) ``tools.exp_microbatch`` at its
    defaults (64 requests of 640 x 640 from 16 threads, det_10g +
@@ -377,9 +383,42 @@ non-zero exit if it fails:
    and bf16, cuDNN's bf16 conv, the 8192 GEMM, the 28-conv chain), every
    int8 conv and the int8 GEMM exactly equal to float64 on the card; each
    part's seconds;
-26. one JSON line of every kernel's numbers (K1's launches are those of
-   phases 4, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 24 and 25; K2's those
-   of phases 7, 17, 20 and 23).
+26. the decision tools (``DECISIONS``), on synthetic identities drawn in
+   memory (``tools.exp_decisions.synthetic_crops``: no cv2, no image
+   cache): (a) ``tools.exp_decisions.run_decision_eval`` on the committed
+   det_500m + w600k_mbf (read with the port's msgpack reader) over 8
+   identities x 3 visits, both duplicate probes, 8 verification pairs and
+   the merge probes, through ``FaceAnalysis`` at f32 (TF32 off) on the
+   card and on the CPU: the metrics equal (``elapsed_s`` aside, the
+   verification means within 1e-4; a decision that flips must be a tie,
+   a similarity within 1e-4 of its threshold on both devices); then at
+   bf16 (the facade's card default): the counters sum to the visits, at
+   least 2 duplicates (the URL probe and the same-pixels probe), at least
+   one visit processed; (b) ``train_detector`` and ``train_embedder`` from
+   the committed weights, 20 steps each at full width (det_500m at 320,
+   batch 8; w600k_mbf at batch 64), eval every 10: the JAX tool's line
+   keys, ms a step, the checkpoints saved under ``build/smoke/decisions``
+   and read back bit for bit, eval from the files equal to eval from the
+   trees; (c) ``tools.replay_visits.run`` with det_10g + w600k_r50 at the
+   facade's seeded init (bf16) over 24 visits, 6 of them missing from the
+   in-memory md5(url) cache: every visit handled, the misses failed
+   downloads, processed = recognized + new persons = SQLite's persons,
+   visits/s; K1's launch count reset just before (a) and read just after
+   (c) (none fails) and K1 against its plain version on the card's
+   inputs; an ERROR the port logs fails the phase; each part's seconds;
+27. one JSON line of every kernel's numbers (K1's launches are those of
+   phases 4, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 24, 25 and 26; K2's
+   those of phases 7, 17, 20 and 23).
+
+    python3 chip_smoke.py --phases 1-4,26     # some phases
+    python3 chip_smoke.py --full-scale        # phase 23 at full scale
+
+``--phases LIST`` runs phases 1, 2 and the listed ones, each with the
+earlier phases whose results it takes (5 and 7 need 4, 8 and 20 need 7,
+15 and 24 need 13, 16 needs 15, 17 needs 12, 21 needs 18 and 19); the
+kernels line then lists the kernels whose timing phase ran (K1 4, K2 7,
+K3 9, K4 10). ``--full-scale`` runs phase 23 at the tools' defaults (with
+no ``--phases``, phase 23 alone).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside it, the script exits non-zero and prints no
@@ -531,11 +570,30 @@ TRAIN_MESH = dict(
 # release_check.py) on the card: seeded synthetic frames of mixed sizes
 # (480x640, 720x1280, 1080x1920), the gate's dry run on 8 slots of the card
 SIGNOFF = dict(frames=3, gate_slots=8)
+# phase 23: (a) exp_pq_scale's gallery, query sweep and dense / recall
+# rows, K2 held to its plain version at k2_checks (Q, precision) on the
+# swept gallery, and "wide": a gallery of g rows whose codes are drawn on
+# the card, one search past 2^31 scores (Q x G) and K2 held to its plain
+# version on it (None where the swept gallery is itself past 2^31); (b)
+# the synchronous crossing at each sync_rows, the background one at
+# async_rows; (c) the duplicate scan; (d) the codec budget. The default
+# call cuts the tools' defaults (GALLERY_SCALE_FULL, --full-scale) to fit
+# beside the other phases: the 10M host fill, the sweep's Q = 64 and 128,
+# the 2M-row dense and recall rows, the 1M and 2M crossings, the 1M scan
+# and the 1M budget rows
 GALLERY_SCALE = dict(
+    pq=dict(g=1_000_000, q_sweep=(16, 256), dense_g=250_000),
+    k2_checks=((16, "hilo"), (16, "hi"), (256, "hi")),
+    wide=dict(g=10_000_000, q=256, precision="hi"),
+    sync_rows=(250_000,), async_rows=250_000,
+    merge=dict(g=200_000, dups=2000, threshold=0.95),
+    budget=dict(rows=250_000, queries=256))
+GALLERY_SCALE_FULL = dict(
     pq=dict(g=10_000_000, q_sweep=(16, 64, 128, 256), dense_g=2_000_000),
     k2_checks=((16, "hilo"), (16, "hi"), (256, "hi")),
-    sync_rows=1_000_000, async_rows=1_000_000,
-    merge=dict(g=500_000, dups=2000, threshold=0.95),
+    wide=None,
+    sync_rows=(1_000_000, 2_000_000), async_rows=1_000_000,
+    merge=dict(g=1_000_000, dups=2000, threshold=0.95),
     budget=dict(rows=1_000_000, queries=256))
 # phase 24: the tools' defaults: (a) exp_microbatch (requests, threads,
 # image side, the collector's wait, the models, the detector's input);
@@ -561,6 +619,19 @@ PROFILE_TOOLS = dict(
     exp_int8=dict(convs=((64, 160, 160, 56, 56), (64, 160, 160, 128, 128),
                          (32, 80, 80, 256, 256)),
                   matmul=8192, chain_batch=16))
+# phase 26: the decision tools: synthetic identities (eval, train and val
+# ones), the committed checkpoints' eval slice (visits an identity,
+# verification pairs), a few steps of each trainer from the committed
+# weights (eval every eval_every), the replay's visits (misses of them not
+# in the cache) through the tool's default models
+DECISIONS = dict(
+    ids=dict(eval=8, train=8, val=4), seed=0,
+    eval=dict(visits=3, pairs=8),
+    train=dict(det_steps=20, emb_steps=20, eval_every=10, det_batch=8,
+               emb_batch=64, per_id=4),
+    replay=dict(visits=24, misses=6, det="det_10g", rec="w600k_r50",
+                det_size=(640, 640)))
+TOL_DECISION = 1e-4     # f32 card vs CPU: verification means, ties
 TRAIN_DET = dict(
     cmp=dict(det="det_500m", size=640, batch=4, max_gt=8, steps=3),
     full=dict(det="det_10g", size=640, batch=32, max_gt=32, warm=3,
@@ -6181,9 +6252,12 @@ def scale_search(torch, rep):
     if bad:
         fail(f"23a a search returned an id < 0: {bad[0]}")
     for r in res["recall"]:
-        if r["top1_same_identity"] != 1.0:
-            fail(f"23a top-1 same identity {r['top1_same_identity']} < 1.0 "
-                 f"({r['label']})")
+        # a query whose identity drew no row of the gallery cannot find it
+        if r["top1_hits"] != r["identity_present"]:
+            fail(f"23a top-1 same identity for {r['top1_hits']} queries, "
+                 f"not the {r['identity_present']} whose identity the "
+                 f"gallery holds ({r['label']}; top1_same_identity "
+                 f"{r['top1_same_identity']})")
     f = res["fill"]
     rep.say(f"23a fill of {cfg['g']} rows: {f['rows_per_s']:.1f} rows/s, "
             f"{f['seconds']:.2f} s = making the rows on the host "
@@ -6204,8 +6278,65 @@ def scale_search(torch, rep):
                 f"{precision}: {n} scores ({'past' if n > 2 ** 31 else 'below'}"
                 f" 2^31), bit-equal, NaN positions equal ({secs:.1f} s)")
     rep.say(f"23a K2 launches over exp_pq_scale: {launches}")
-    return dict(launches=launches, err=max(c[2] for c in checked),
-                res=res)
+    wide = scale_wide(torch, rep)
+    return dict(launches=launches + wide["launches"],
+                err=max([c[2] for c in checked] + wide["err"]), res=res)
+
+
+def scale_wide(torch, rep):
+    """23a: one search past 2^31 scores without the host fill: a
+    PQGallery of GALLERY_SCALE["wide"]["g"] rows whose codes are drawn on
+    the card (every row valid), one search of Q queries (K2 counted; every
+    id >= 0), then K2 held bit for bit to its plain version on the whole
+    (Q, G). None in the config: the swept gallery already is that large."""
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import pq_adc
+    from scrfd_arcface_facerecognition_tpu_torch.gallery.pq import (
+        PQCodec, PQGallery)
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        exp_pq_scale as xs)
+
+    cfg = GALLERY_SCALE["wide"]
+    if cfg is None:
+        return dict(launches=0, err=[])
+    t = time.perf_counter()
+    rng = np.random.default_rng(1)
+    codec = PQCodec.train(xs.unit_rows(rng, xs.CODEC_TRAIN_ROWS), m=64,
+                          device=DEV)
+    gal = PQGallery(codec, capacity=cfg["g"], device=DEV)
+    codes, valid = gal._shards.rows[0], gal._shards.valid[0]
+    gen = torch.Generator(device=codes.device).manual_seed(1)
+    codes.copy_(torch.randint(0, codec.k, codes.shape, generator=gen,
+                              dtype=torch.uint8, device=codes.device))
+    valid.fill_(True)
+    gal._ids[:] = np.arange(cfg["g"])
+    gal._free = []
+    qs = xs.unit_rows(rng, cfg["q"])
+    sync_all(torch)
+    drawn = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    n0 = pq_adc.launches
+    t = time.perf_counter()
+    _, ids = gal.search(qs, k=5, precision=cfg["precision"])
+    search_s = time.perf_counter() - t
+    launches = pq_adc.launches - n0
+    if launches == 0:
+        fail("23a the search over the drawn codes launched K2 no time")
+    if not (ids >= 0).all():
+        fail(f"23a the search over {cfg['g']} drawn codes returned an id "
+             f"< 0")
+    t = time.perf_counter()
+    lut = codec.lut(qs)
+    err = k2_bit_equal(torch, pq_adc, lut, gal._codes, cfg["precision"])
+    n = cfg["q"] * cfg["g"]
+    rep.say(f"23a {cfg['g']} codes drawn on the card ({drawn:.1f} s with "
+            f"the codec), one search at Q={cfg['q']} {cfg['precision']} "
+            f"({search_s:.2f} s, {launches} K2 launch, every id >= 0); K2 "
+            f"vs plain on them: {n} scores "
+            f"({'past' if n > 2 ** 31 else 'below'} 2^31), bit-equal, NaN "
+            f"positions equal ({time.perf_counter() - t:.1f} s)")
+    del gal, codes, valid, lut
+    torch.cuda.empty_cache()
+    return dict(launches=launches, err=[err])
 
 
 def scale_migration(torch, rep):
@@ -6216,11 +6347,13 @@ def scale_migration(torch, rep):
         exp_migration as xm)
 
     pq_adc.launches = 0
-    sync = xm.run_scale(GALLERY_SCALE["sync_rows"], device=DEV)
-    rep.say("23b sync " + json.dumps(sync))
-    if sync["top1_self"] != "16/16":
-        fail(f"23b top-1 self {sync['top1_self']} after the synchronous "
-             f"crossing")
+    sync = []
+    for rows in GALLERY_SCALE["sync_rows"]:
+        sync.append(xm.run_scale(rows, device=DEV))
+        rep.say("23b sync " + json.dumps(sync[-1]))
+        if sync[-1]["top1_self"] != "16/16":
+            fail(f"23b top-1 self {sync[-1]['top1_self']} after the "
+                 f"synchronous crossing at {rows} rows")
     asy = xm.run_scale_async(GALLERY_SCALE["async_rows"], device=DEV)
     rep.say("23b async " + json.dumps(asy))
     if asy["bg_failed"]:
@@ -6608,9 +6741,523 @@ def phase_measure_tools(torch, rep):
                 out=out, secs=secs)
 
 
-def main():
+# ---------------------------------------------------------------------
+# phase 26: the decision tools on the card: tools.exp_decisions' eval of
+# the committed checkpoints (f32 card against the CPU, then bf16), its two
+# trainers for a few steps and the checkpoints round trip, and
+# tools.replay_visits over an in-memory cache, K1 counted over all three
+
+
+def decision_data():
+    """The phase's synthetic identities (``exp_decisions.synthetic_crops``)
+    and their eval / train / val ids."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        exp_decisions as xd)
+
+    c = DECISIONS["ids"]
+    crops, _ = xd.synthetic_crops(c["eval"] + c["train"] + c["val"],
+                                  DECISIONS["seed"])
+    ids = np.arange(len(crops))
+    a, b = c["eval"], c["eval"] + c["train"]
+    return crops, ids[:a], ids[a:b], ids[b:]
+
+
+@contextlib.contextmanager
+def decision_trace():
+    """Every similarity the engine decides on, in order, in the list this
+    yields: each search of its gallery (an ``AutoGallery``), the hits'
+    scores before any threshold drops them ("search", [scores]), and each
+    verification's ("compare", [similarity]). The threshold is applied
+    after, as the gallery applies it (a hit below it is dropped)."""
+    from scrfd_arcface_facerecognition_tpu_torch.apps import clustering
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import AutoGallery
+
+    trace = []
+    saved = [(AutoGallery, "search_batch", AutoGallery.search_batch),
+             (clustering.SmartFaceEngine, "compare_face_images",
+              clustering.SmartFaceEngine.compare_face_images)]
+
+    def searched(fn):
+        def search_batch(self, queries, k=5, threshold=None):
+            hits = fn(self, queries, k=k, threshold=None)
+            trace.extend(("search", [h.score for h in hl]) for hl in hits)
+            return [[h for h in hl if threshold is None
+                     or not h.score < threshold] for hl in hits]
+        return search_batch
+
+    def compared(fn):
+        def compare_face_images(self, image1, image2):
+            out = fn(self, image1, image2)
+            if out.get("success"):
+                trace.append(("compare", [out["similarity"]]))
+            return out
+        return compare_face_images
+
+    AutoGallery.search_batch = searched(saved[0][2])
+    clustering.SmartFaceEngine.compare_face_images = compared(saved[1][2])
+    try:
+        yield trace
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+def decision_thresholds():
+    """The thresholds the engine holds similarities to (its defaults)."""
+    from scrfd_arcface_facerecognition_tpu_torch.utils.config import (
+        DEFAULT_CONFIG)
+
+    fr = DEFAULT_CONFIG["face_recognition"]
+    return sorted({fr["grouping_threshold_json"], fr["similarity_threshold"],
+                   fr["duplicate_similarity_threshold"],
+                   fr["merge_duplicate_threshold"],
+                   DEFAULT_CONFIG["face_comparison"]["similarity_threshold"]})
+
+
+def hold_decisions(card, cpu, card_trace, cpu_trace, thresholds,
+                   tol=TOL_DECISION):
+    """26a: the card's f32 metrics against the CPU's, ``elapsed_s`` aside,
+    floats (the verification means) within ``tol``. Where they differ, the
+    first decision on which the two runs part must be a tie: a similarity
+    that lies within ``tol`` of a threshold on both devices, on opposite
+    sides of it; every similarity before it agrees within ``tol``. Returns
+    None when the metrics agree, else what the tie was; fails otherwise."""
+    def bare(m):
+        return {k: v for k, v in m.items() if k != "elapsed_s"}
+
+    diff = record_diff(bare(card), bare(cpu), tol, "metrics")
+    if diff is None:
+        return None
+    for i, ((kind, a), (kind_b, b)) in enumerate(zip(card_trace, cpu_trace)):
+        if kind != kind_b or len(a) != len(b):
+            fail(f"26a {diff}; decision {i} is a {kind} of {len(a)} scores "
+                 f"on the card, a {kind_b} of {len(b)} on the CPU, and no "
+                 f"earlier decision flipped at a tie")
+        for x, y in zip(a, b):
+            for t in thresholds:
+                if (x >= t) != (y >= t):
+                    if abs(x - t) <= tol and abs(y - t) <= tol:
+                        return (f"decision {i} ({kind}) flipped at a tie: "
+                                f"{x:.7f} on the card, {y:.7f} on the CPU "
+                                f"against {t}")
+                    fail(f"26a {diff}; decision {i} ({kind}) flipped: "
+                         f"{x:.7f} on the card, {y:.7f} on the CPU against "
+                         f"{t}, not a tie (tolerance {tol})")
+            if abs(x - y) > tol:
+                fail(f"26a {diff}; decision {i} ({kind}): similarity "
+                     f"{x:.7f} on the card, {y:.7f} on the CPU")
+    fail(f"26a {diff}, and no similarity the engines decided on flipped at "
+         f"a threshold ({len(card_trace)} and {len(cpu_trace)} decisions)")
+
+
+def decision_eval_run(torch, trees, data, workdir, app):
+    """One ``run_decision_eval`` of DECISIONS["eval"] on ``app``: (the
+    metrics, the similarity trace, seconds)."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        exp_decisions as xd)
+
+    c = DECISIONS["eval"]
+    crops, eval_ids = data[0], data[1]
+    with decision_trace() as trace:
+        t = time.perf_counter()
+        m = xd.run_decision_eval(trees[0], trees[1], crops, eval_ids,
+                                 workdir, visits_per_id=c["visits"],
+                                 n_verif_pairs=c["pairs"],
+                                 seed=DECISIONS["seed"], log=lambda s: None,
+                                 app=app)
+        sync_all(torch)
+        secs = time.perf_counter() - t
+    return m, list(trace), secs
+
+
+def decisions_eval(torch, rep, data, trees, tmp):
+    """26a: the committed checkpoints' eval slice on the card at f32 (TF32
+    off) against the same call on the CPU, then at the facade's card
+    default (bf16): the machinery's counts."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        exp_decisions as xd, replay_visits as rv)
+
+    with full_f32(torch):
+        card, card_trace, card_s = decision_eval_run(
+            torch, trees, data, os.path.join(tmp, "a_card_f32"),
+            xd.build_app(*trees, device=DEV, dtype=torch.float32))
+        cpu, cpu_trace, cpu_s = decision_eval_run(
+            torch, trees, data, os.path.join(tmp, "a_cpu_f32"),
+            xd.build_app(*trees, device="cpu"))
+    tie = hold_decisions(card, cpu, card_trace, cpu_trace,
+                         decision_thresholds())
+    n = card["n_visits"]
+    rep.say("26a card f32 " + json.dumps(card))
+    rep.say(f"26a f32 with TF32 off: the card's metrics "
+            + ("equal the CPU's" if tie is None else
+               f"part from the CPU's at a tie ({tie})")
+            + f" ({len(card_trace)} similarities decided on); "
+            f"{1e3 * card_s / n:.1f} ms a visit on the card, "
+            f"{1e3 * cpu_s / n:.1f} on the CPU (the whole eval: the visits, "
+            f"the attribution, {card['verification']['pairs']} "
+            f"verifications, the merge)")
+    bf, _, bf_s = decision_eval_run(
+        torch, trees, data, os.path.join(tmp, "a_card_bf16"),
+        xd.build_app(*trees, device=DEV))
+    cnt = bf["counters"]
+    handled = sum(cnt[k] for k in rv.HANDLED)
+    if handled != bf["n_visits"]:
+        fail(f"26a bf16: the counters handle {handled} visits of "
+             f"{bf['n_visits']}: {cnt}")
+    if cnt["duplicate_faces"] < 2:
+        fail(f"26a bf16: {cnt['duplicate_faces']} duplicate faces, not the "
+             f"URL probe and the same-pixels probe: {cnt}")
+    if cnt["processed"] < 1:
+        fail(f"26a bf16: no visit processed: {cnt}")
+    rep.say("26a card bf16 " + json.dumps(bf))
+    rep.say(f"26a bf16 (the facade's card default): {handled} visits "
+            f"handled of {bf['n_visits']}, {cnt['duplicate_faces']} "
+            f"duplicates, {cnt['processed']} processed; "
+            f"{1e3 * bf_s / n:.1f} ms a visit")
+    return dict(f32=card, cpu=cpu, bf16=bf, tie=tie)
+
+
+JAX_LINE_KEYS = (
+    ({"curve", "step", "value", "loss", "elapsed_s"}, "decisions_det_ap50"),
+    ({"stage", "scenes", "detector_hit_rate"}, "extract_aligned"),
+    ({"curve", "step", "unseen_val", "seen"}, "decisions_verification"),
+    ({"stage", "best_step", "best_unseen_val"}, "model_selection"))
+
+
+def hold_line_keys(lines):
+    """Each of the trainers' JSON lines carries the JAX tool's keys for its
+    kind (a curve point past step 0 also its loss and elapsed_s)."""
+    for line in lines:
+        d = json.loads(line)
+        kind = d.get("curve", d.get("stage"))
+        want = next((k for k, name in JAX_LINE_KEYS if name == kind), None)
+        if want is None:
+            fail(f"26b a line of no JAX kind: {line}")
+        if kind == "decisions_verification" and d["step"] > 0:
+            want = want | {"loss", "elapsed_s"}
+        if not want <= set(d):
+            fail(f"26b the line lacks the JAX tool's {sorted(want - set(d))}"
+                 f": {line}")
+
+
+def tree_equal(a, b):
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(tree_equal(a[k], b[k]) for k in a))
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+def decisions_train(torch, rep, data, trees, tmp):
+    """26b: both trainers for a few steps at full width from the committed
+    weights, the JAX tool's line keys, the checkpoints saved under build/
+    and read back bit for bit, and eval from the files equal to eval from
+    the trees (f32, TF32 off)."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        exp_decisions as xd)
+
+    c = DECISIONS["train"]
+    crops, _, train_ids, val_ids = data
+    lines = []
+    t = time.perf_counter()
+    det_vars, det_curve = xd.train_detector(
+        crops, train_ids, c["det_steps"], batch=c["det_batch"],
+        seed=DECISIONS["seed"], eval_every=c["eval_every"], log=lines.append,
+        device=DEV, init_variables=trees[0])
+    det_s = time.perf_counter() - t
+    t = time.perf_counter()
+    emb_vars, emb_curve, best = xd.train_embedder(
+        det_vars, crops, train_ids, val_ids, c["emb_steps"],
+        batch=c["emb_batch"], per_id=c["per_id"], seed=DECISIONS["seed"],
+        eval_every=c["eval_every"], log=lines.append, device=DEV,
+        init_variables=trees[1])
+    emb_s = time.perf_counter() - t
+    for line in lines:
+        rep.say("26b " + line)
+    hold_line_keys(lines)
+    ms = {}
+    for line in map(json.loads, lines):
+        if "ms_step" in line:
+            ms[line["curve"]] = line["ms_step"]
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "smoke", "decisions")
+    xd.save_checkpoints(det_vars, emb_vars, dict(best_step=best["step"]),
+                        out)
+    det_back, emb_back, meta = xd.load_checkpoints(out)
+    if not (tree_equal(det_back, det_vars) and tree_equal(emb_back, emb_vars)
+            and meta == dict(best_step=best["step"])):
+        fail(f"26b the checkpoints read back from {out} differ from the "
+             f"trained trees")
+    with full_f32(torch):
+        mem = decision_eval_run(torch, (det_vars, emb_vars), data,
+                                os.path.join(tmp, "b_trees"), xd.build_app(
+                                    det_vars, emb_vars, device=DEV,
+                                    dtype=torch.float32))[0]
+        back = decision_eval_run(torch, (det_back, emb_back), data,
+                                 os.path.join(tmp, "b_files"), xd.build_app(
+                                     det_back, emb_back, device=DEV,
+                                     dtype=torch.float32))[0]
+    mem.pop("elapsed_s")
+    back.pop("elapsed_s")
+    d = record_diff(back, mem, 0.0, "eval")
+    if d:
+        fail(f"26b eval from the saved checkpoints differs from eval from "
+             f"the trees: {d}")
+    rep.say(f"26b det_500m {c['det_steps']} steps at batch {c['det_batch']} "
+            f"from the committed weights: AP@0.5 {det_curve}, "
+            f"{ms['decisions_det_ap50']:.1f} ms a step, {det_s:.1f} s; "
+            f"w600k_mbf {c['emb_steps']} steps at batch {c['emb_batch']}: "
+            f"unseen / seen accuracy {[list(x) for x in emb_curve]}, best "
+            f"step {best['step']}, {ms['decisions_verification']:.1f} ms a "
+            f"step, {emb_s:.1f} s; saved to build/, read back bit for bit, "
+            f"eval from the files equal to eval from the trees (grouping "
+            f"{mem['grouping']}, verification {mem['verification']})")
+    return dict(det_ms=ms["decisions_det_ap50"],
+                emb_ms=ms["decisions_verification"], eval=mem)
+
+
+def decisions_replay(torch, rep, data, tmp):
+    """26c: ``tools.replay_visits.run`` with the tool's default models
+    (det_10g + w600k_r50 at the facade's seeded init, bf16 on the card)
+    over a synthetic visits JSON, some of its URLs missing from the
+    in-memory md5(url) cache."""
+    from scrfd_arcface_facerecognition_tpu_torch.apps import FaceAnalysis
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        exp_decisions as xd, replay_visits as rv)
+
+    c = DECISIONS["replay"]
+    crops = data[0]
+    rng = np.random.default_rng(DECISIONS["seed"] + 5)
+    misses = set(rng.choice(c["visits"], size=c["misses"],
+                            replace=False).tolist())
+    visits, cache = [], {}
+    for i in range(c["visits"]):
+        url = f"http://replay/visit{i:03d}.jpg"
+        visits.append({"id": f"r{i:03d}", "customerId": f"cust{i:03d}",
+                       "entryTime": "2026-08-19T12:00:00", "image": url})
+        if i not in misses:
+            cache[rv.cache_name(url)] = xd.make_scene(
+                rng, crops[i % len(crops)])[0]
+
+    def loader(source, save_path=None, timeout=30):
+        return cache.get(rv.cache_name(source))
+
+    app = FaceAnalysis(det_variant=c["det"], rec_variant=c["rec"], seed=0,
+                       device=DEV)
+    app.prepare(det_size=c["det_size"])
+    out = rv.run({"visits": visits}, app, loader, os.path.join(tmp, "c"))
+    engine = out.pop("engine")
+    res = out["results"]
+    persons = engine.db.stats()["total_persons"]
+    rep.say("26c " + json.dumps(out))
+    if out["visits_handled"] != c["visits"]:
+        fail(f"26c {out['visits_handled']} visits handled of {c['visits']}")
+    if res["download_failed"] != c["misses"]:
+        fail(f"26c {res['download_failed']} downloads failed, not the "
+             f"{c['misses']} visits missing from the cache")
+    if res["processed"] != res["recognized"] + res["new_persons"]:
+        fail(f"26c processed {res['processed']} != recognized "
+             f"{res['recognized']} + new persons {res['new_persons']}")
+    if persons != res["new_persons"]:
+        fail(f"26c {persons} persons in SQLite, {res['new_persons']} new")
+    rep.say(f"26c {c['det']} + {c['rec']} (seeded) at {app.dtype}: "
+            f"{c['visits']} visits ({c['misses']} missing from the cache) at "
+            f"{out['visits_per_sec']} visits/s; {persons} persons in SQLite "
+            f"= new persons")
+    return out
+
+
+def phase_decisions(torch, rep):
+    """26: the decision tools on the card, K1 counted over (a)-(c) and held
+    to its plain version on the card's inputs; an ERROR the port logs
+    fails the phase."""
+    import tempfile
+
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        exp_decisions as xd)
+
+    t0 = time.perf_counter()
+    data = decision_data()
+    trees = xd.load_checkpoints()[:2]
+    out, secs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp, port_log("26") as _, \
+            captured_calls(ops, "warp_align_crops", key=lambda a: (
+                tuple(a[0].shape), str(a[0].device))) as calls:
+        wa.launches = 0
+        for part, run in (
+                ("a", lambda: decisions_eval(torch, rep, data, trees, tmp)),
+                ("b", lambda: decisions_train(torch, rep, data, trees, tmp)),
+                ("c", lambda: decisions_replay(torch, rep, data, tmp))):
+            t = time.perf_counter()
+            out[part] = run()
+            secs[part] = time.perf_counter() - t
+        launches = wa.launches
+    if launches <= 0:
+        fail("26 the decision tools launched K1 no time")
+    dev = torch.device(DEV).type
+    err, what = k1_on_path(torch, wa, [c for c in calls
+                                       if c[0].device.type == dev])
+    rep.say(f"26 K1 {launches} launches over (a)-(c), vs plain on the "
+            f"card's inputs, {what}: max abs err {err:.6g} u8 (tolerance "
+            f"{TOL_U8})")
+    rep.say(f"phase 26 took {time.perf_counter() - t0:.1f} s: "
+            + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()))
+    return dict(launches=launches, err=err, out=out, secs=secs)
+
+
+# ---------------------------------------------------------------------
+# the phases a call runs: phases 1 (the toolchain and the card) and 2 (the
+# build) always; --phases picks among 3-26, each with the earlier phases
+# whose results it takes (PHASE_NEEDS)
+
+PHASE_NUMBERS = tuple(range(3, 27))
+PHASE_NEEDS = {5: (4,), 7: (4,), 8: (7,), 15: (13,), 16: (15,), 17: (12,),
+               20: (7,), 21: (18, 19), 24: (13,)}
+
+
+def parse_phases(text):
+    """"1-4,26" -> {1, 2, 3, 4, 26}; a phase outside 1-26, an empty item
+    or a backward range raises."""
+    out = set()
+    for item in text.split(","):
+        item = item.strip()
+        lo, sep, hi = item.partition("-")
+        try:
+            a = int(lo)
+            b = int(hi) if sep else a
+        except ValueError:
+            raise ValueError(f"--phases: {item!r} is not a phase or a "
+                             f"range of phases") from None
+        if not 1 <= a <= b <= PHASE_NUMBERS[-1]:
+            raise ValueError(f"--phases: {item!r} is not within 1-"
+                             f"{PHASE_NUMBERS[-1]}")
+        out.update(range(a, b + 1))
+    return out
+
+
+def resolve_phases(selected):
+    """The phases to run, in order, for a selection: each selected phase
+    and every phase it needs, transitively. Returns (phases, the ones
+    added for a need, {added phase: the phase that needs it})."""
+    want = {p for p in selected if p >= 3}
+    why = {}
+    todo = sorted(want)
+    while todo:
+        p = todo.pop()
+        for need in PHASE_NEEDS.get(p, ()):
+            if need not in want:
+                want.add(need)
+                why[need] = p
+                todo.append(need)
+    added = sorted(set(why))
+    return sorted(want), added, why
+
+
+def parse_args(argv):
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="Smoke run of the PyTorch port on one CUDA card.")
+    ap.add_argument("--phases", default=None, metavar="LIST",
+                    help="phases to run, e.g. 1-4,26 (default: all); the "
+                         "phases a selected one needs run with it")
+    ap.add_argument("--full-scale", action="store_true",
+                    help="phase 23 at the tools' defaults "
+                         "(GALLERY_SCALE_FULL); alone it runs phase 23 only")
+    args = ap.parse_args(argv)
+    if args.phases is not None:
+        try:
+            selected = parse_phases(args.phases)
+        except ValueError as e:
+            ap.error(str(e))
+    elif args.full_scale:
+        selected = {23}
+    else:
+        selected = set(PHASE_NUMBERS)
+    if args.full_scale:
+        selected.add(23)
+    return args, selected
+
+
+def kernel_rows(torch, wa, pq_adc, r):
+    """The kernels line from the phases' results ``r`` (phase -> result):
+    K1 from phases 3, 4, 11-26, K2 from 6, 7, 12, 17, 20 and 23, K3 from 9
+    and 11, K4 from 10. A kernel is listed when the phase that times it
+    ran (K1 4, K2 7, K3 9, K4 10), with the launches and errors of the
+    phases that ran."""
+    def got(p, fn, default=0):
+        return fn(r[p]) if p in r else default
+
+    k1_launches = (got(4, lambda v: v["launches"])
+                   + sum(got(p, lambda v: v["launches"])
+                         for p in (13, 14, 15, 16, 18, 19, 21, 22, 24, 25,
+                                   26))
+                   + got(17, lambda v: v["k1"]) + got(20, lambda v: v["k1"]))
+    k1_err = max([got(3, lambda v: v), got(4, lambda v: v["err"]),
+                  got(11, lambda v: v["err1"]),
+                  got(12, lambda v: max(v["fa"]["err"], v["eng"]["err"])),
+                  got(17, lambda v: v["err1"]), got(20, lambda v: v["err1"])]
+                 + [got(p, lambda v: v["err"])
+                    for p in (13, 14, 15, 16, 18, 19, 21, 22, 24, 25, 26)])
+    k2_launches = (got(7, lambda v: v["launches"])
+                   + got(17, lambda v: v["k2"]) + got(20, lambda v: v["k2"])
+                   + got(23, lambda v: v["launches"]))
+    k2_err = max(got(6, lambda v: v), got(7, lambda v: v["err"]),
+                 got(12, lambda v: v["eng_pq"]["err"]),
+                 got(17, lambda v: v["err2"]), got(20, lambda v: v["err2"]),
+                 got(23, lambda v: v["err"]))
+
+    def times(t):
+        return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}
+
+    rows = []
+    if 4 in r:
+        rows.append({
+            "name": wa.NAME, "route": "cuda",
+            "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/"
+                      "warp_align.cu",
+            "replaces": "scrfd_arcface_facerecognition_tpu/ops/"
+                        "pallas_warp.py:430",
+            "launches": k1_launches, "max_abs_err": k1_err,
+            **times(r[4]["t"])})
+    if 7 in r:
+        rows.append({
+            "name": pq_adc.NAME, "route": "cuda",
+            "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/"
+                      "pq_adc.cu",
+            "replaces": "scrfd_arcface_facerecognition_tpu/gallery/pq.py:302",
+            "launches": k2_launches, "max_abs_err": k2_err,
+            **times(r[7]["times"])})
+    if 9 in r:
+        k3 = r[9]
+        rows.append({
+            "name": "warp_band", "route": "cuda",
+            "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/"
+                      "warp_band.cu",
+            "replaces": "tools/exp_warp2.py:188",
+            "launches": k3["launches"],
+            "max_abs_err": max(k3["err"], got(11, lambda v: v["err"])),
+            **times(dict(k3, library_ms=None))})
+    if 10 in r:
+        k4 = r[10]
+        rows.append({
+            "name": "conv3x3", "route": "cuda",
+            "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/"
+                      "conv3x3.cu",
+            "replaces": "tools/exp_pallas_conv.py:110",
+            "launches": k4["launches"], "max_abs_err": k4["err"],
+            **times(k4)})
+    return rows
+
+
+def main(argv=None):
     import torch
 
+    args, selected = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -6621,6 +7268,10 @@ def main():
     from scrfd_arcface_facerecognition_tpu_torch.gallery import pq_adc
     from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
 
+    global GALLERY_SCALE
+    if args.full_scale:
+        GALLERY_SCALE = GALLERY_SCALE_FULL
+    phases, added, why = resolve_phases(selected)
     t_start = time.perf_counter()
     card = card_line()
     rep = Report(card)
@@ -6637,131 +7288,78 @@ def main():
     except ImportError:
         print("triton does not import")
     print(f"card: {card}")
+    print("phases: 1, 2, " + ", ".join(map(str, phases))
+          + "".join(f"; {p} runs for {why[p]}" for p in added)
+          + ("; phase 23 at full scale" if args.full_scale else ""))
 
     # 2. build
     secs = cuda_build.build_all()
     rep.say("built " + ", ".join(f"{n} in {s:.2f} s" for n, s in secs.items())
             + " (nvcc, sm_90a)")
 
-    # 3. K1 against its plain version
-    err3 = phase_kernel_vs_plain(torch, wa, rep)
+    r = {}
 
-    # 4. the main path at full width
-    launches, err4, t, main_emb = phase_main_path(torch, rep)
+    def facade_and_engines():
+        app, fa = phase_facade(torch, rep)
+        phase_microbatch(torch, rep, app)
+        eng = phase_engine(torch, rep, app)
+        eng_pq = phase_engine_pq(torch, rep)
+        ver = phase_verification(torch, rep, app)
+        return dict(app=app, fa=fa, eng=eng, eng_pq=eng_pq, ver=ver)
 
-    # 5. card vs CPU, TF32 off for this phase only
-    with full_f32(torch):
-        phase_card_vs_cpu(torch, rep)
+    def main_path():
+        launches, err, t, emb = phase_main_path(torch, rep)
+        return dict(launches=launches, err=err, t=t, emb=emb)
 
-    # 6. K2 against its plain version
-    err6 = phase_k2_vs_plain(torch, pq_adc, rep)
+    def card_vs_cpu():
+        with full_f32(torch):       # TF32 off for this phase only
+            phase_card_vs_cpu(torch, rep)
 
-    # 7. the gallery path at full width
-    gal = phase_gallery_path(torch, rep, main_emb)
+    def bf16():
+        out = phase_bf16_bench(torch, rep)
+        phase_bf16_checkpoints(torch, rep)
+        return out
 
-    # 8. the PQ gallery, card vs CPU
-    phase_gallery_card_vs_cpu(torch, rep, gal["codec"], gal["rows"],
-                              gal["ids"], gal["queries"])
+    steps = {
+        3: lambda: phase_kernel_vs_plain(torch, wa, rep),
+        4: main_path,
+        5: card_vs_cpu,
+        6: lambda: phase_k2_vs_plain(torch, pq_adc, rep),
+        7: lambda: phase_gallery_path(torch, rep, r[4]["emb"]),
+        8: lambda: phase_gallery_card_vs_cpu(
+            torch, rep, r[7]["codec"], r[7]["rows"], r[7]["ids"],
+            r[7]["queries"]),
+        9: lambda: phase_k3(torch, rep),
+        10: lambda: phase_k4(torch, rep),
+        11: lambda: phase_standin_path(torch, rep),
+        12: facade_and_engines,
+        13: bf16,
+        14: lambda: phase_realtime(torch, rep),
+        15: lambda: phase_onnx_exec(torch, rep, r[13]["bench"]),
+        16: lambda: phase_camera_apps(torch, rep, r[15]["paths"]),
+        17: lambda: phase_web(torch, rep, r[12]["app"], dict(
+            ms_visit=r[12]["eng"]["ms_visit"],
+            ms_pair=r[12]["ver"]["ms_pair"])),
+        18: lambda: phase_train(torch, rep),
+        19: lambda: phase_det_train(torch, rep),
+        20: lambda: phase_parallel(torch, rep, r[7]),
+        21: lambda: phase_train_mesh(torch, rep, dict(
+            arcface=r[18]["full"][False]["ms"], det=r[19]["full"]["ms"])),
+        22: lambda: phase_signoff(torch, rep),
+        23: lambda: phase_gallery_scale(torch, rep),
+        24: lambda: phase_host_and_learning(
+            torch, rep, r[13]["bench"]["frames_per_sec"]),
+        25: lambda: phase_measure_tools(torch, rep),
+        26: lambda: phase_decisions(torch, rep),
+    }
+    for p in phases:
+        t = time.perf_counter()
+        r[p] = steps[p]()
+        rep.say(f"phase {p} took {time.perf_counter() - t:.1f} s (script at "
+                f"{time.perf_counter() - t_start:.1f} s)")
 
-    # 9. K3 on its path; 10. K4 on its path; 11. the stand-in main path
-    k3 = phase_k3(torch, rep)
-    k4 = phase_k4(torch, rep)
-    sp = phase_standin_path(torch, rep)
-
-    # 12. the facade and the engines
-    app, fa = phase_facade(torch, rep)
-    phase_microbatch(torch, rep, app)
-    eng = phase_engine(torch, rep, app)
-    eng_pq = phase_engine_pq(torch, rep)
-    ver = phase_verification(torch, rep, app)
-
-    # 13. the bf16 main path at bench.py's settings; 14. the realtime app
-    bf = phase_bf16_bench(torch, rep)
-    phase_bf16_checkpoints(torch, rep)
-    rt = phase_realtime(torch, rep)
-
-    # 15. the ONNX executor path
-    ox = phase_onnx_exec(torch, rep, bf["bench"])
-
-    # 16. the camera apps; 17. the web API
-    t16 = time.perf_counter()
-    cam = phase_camera_apps(torch, rep, ox["paths"])
-    t17 = time.perf_counter()
-    web = phase_web(torch, rep, app, dict(ms_visit=eng["ms_visit"],
-                                          ms_pair=ver["ms_pair"]))
-    rep.say(f"phases 16 and 17 took {t17 - t16:.1f} s and "
-            f"{time.perf_counter() - t17:.1f} s")
-
-    # 18. train, checkpoint, export, serve
-    tr = phase_train(torch, rep)
-
-    # 19. the detector: train, checkpoint, AP, export, serve
-    dt = phase_det_train(torch, rep)
-
-    # 20. multi-device serving
-    par = phase_parallel(torch, rep, gal)
-
-    # 21. the trainers' mesh
-    tm = phase_train_mesh(torch, rep, dict(arcface=tr["full"][False]["ms"],
-                                           det=dt["full"]["ms"]))
-
-    # 22. the release sign-off tools
-    so = phase_signoff(torch, rep)
-
-    # 23. the gallery at deployment scale
-    gs = phase_gallery_scale(torch, rep)
-
-    # 24. the serving host's budget and the trainers' proof
-    hl = phase_host_and_learning(torch, rep,
-                                 bf["bench"]["frames_per_sec"])
-
-    # 25. the measurement tools
-    mt = phase_measure_tools(torch, rep)
-
-    # 26. the kernels
-    t2 = gal["times"]
-    kernels = [{
-        "name": wa.NAME, "route": "cuda",
-        "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/warp_align.cu",
-        "replaces": "scrfd_arcface_facerecognition_tpu/ops/pallas_warp.py:430",
-        "launches": launches + bf["launches"] + rt["launches"]
-        + ox["launches"] + cam["launches"] + web["k1"] + tr["launches"]
-        + dt["launches"] + par["k1"] + tm["launches"] + so["launches"]
-        + hl["launches"] + mt["launches"],
-        "max_abs_err": max(err3, err4, sp["err1"], fa["err"], eng["err"],
-                           bf["err"], rt["err"], ox["err"], cam["err"],
-                           web["err1"], tr["err"], dt["err"], par["err1"],
-                           tm["err"], so["err"], hl["err"], mt["err"]),
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-    }, {
-        "name": pq_adc.NAME, "route": "cuda",
-        "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/pq_adc.cu",
-        "replaces": "scrfd_arcface_facerecognition_tpu/gallery/pq.py:302",
-        "launches": gal["launches"] + web["k2"] + par["k2"]
-        + gs["launches"],
-        "max_abs_err": max(err6, gal["err"], eng_pq["err"], web["err2"],
-                           par["err2"], gs["err"]),
-        "ms": t2["ms"], "plain_ms": t2["plain_ms"],
-        "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
-        "library_ms": t2["library_ms"],
-    }, {
-        "name": "warp_band", "route": "cuda",
-        "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/warp_band.cu",
-        "replaces": "tools/exp_warp2.py:188",
-        "launches": k3["launches"], "max_abs_err": max(k3["err"], sp["err"]),
-        "ms": k3["ms"], "plain_ms": k3["plain_ms"],
-        "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
-        "library_ms": None,
-    }, {
-        "name": "conv3x3", "route": "cuda",
-        "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/conv3x3.cu",
-        "replaces": "tools/exp_pallas_conv.py:110",
-        "launches": k4["launches"], "max_abs_err": k4["err"],
-        "ms": k4["ms"], "plain_ms": k4["plain_ms"],
-        "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
-        "library_ms": k4["library_ms"],
-    }]
+    # the kernels
+    kernels = kernel_rows(torch, wa, pq_adc, r)
     rep.say(f"chip_smoke done in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -78,6 +78,18 @@ returns its rows; ``--device cpu`` for the CPU):
   the same im2col GEMM (``torch._int_mm`` for int8), cuDNN's bf16 conv
   beside them, the 8192 GEMM and the 28-conv backbone-shaped chain.
 
+The decision-quality tools, ports of the JAX repository's root tools that
+score the engines' decisions (``--device cpu`` for the CPU):
+
+- ``exp_decisions``: det_500m and w600k_mbf trained on composites of
+  identity crops, then the whole clustering decide path over unseen
+  identities: grouping precision and recall, both duplicate gates,
+  verification, the 0.8 merge;
+- ``replay_visits``: a visits JSON through the engine with an image
+  cache of md5(url).jpg files in place of the network;
+- ``host_images``: cv2's resizes of the compositing (INTER_AREA and
+  INTER_LINEAR) in numpy, bit for bit, for a machine without cv2.
+
 This module imports no torch when it is imported: ``bench_ingest``'s
 capture opener runs in ``DecodePool``'s decode processes, which must stay
 free of torch.

@@ -60,16 +60,23 @@ WARP_VECTOR_COLUMNS = 16            # cv2's vector warp: columns a step
 # ------------------------------------------------------ cv2.resize, uint8
 
 
-def _resize_taps(dst: int, src: int, horizontal: bool):
+def _resize_taps(dst: int, src: int, horizontal: bool, area: bool = False):
     """cv2's linear taps along one axis: (index0, index1, weight0,
     weight1), the weights in 11-bit fixed point. The fraction is taken in
-    float32 from the half-pixel map; the horizontal taps clamp it at the
+    float32 from the half-pixel map (``area``: from the cell edges, cv2's
+    INTER_AREA when it enlarges); the horizontal taps clamp it at the
     borders, the vertical ones only clip the row index."""
     scale = 1.0 / (dst / src)             # cv2: 1 / inv_scale, in double
-    fx = ((np.arange(dst, dtype=np.float64) + 0.5) * scale
-          - 0.5).astype(np.float32)
-    sx = np.floor(fx).astype(np.int64)
-    fx = (fx - sx.astype(np.float32)).astype(np.float32)
+    d = np.arange(dst, dtype=np.float64)
+    if area:
+        sx = np.floor(d * scale).astype(np.int64)
+        fx = ((d + 1) - (sx + 1) * (dst / src)).astype(np.float32)
+        fx = np.where(fx <= 0, np.float32(0),
+                      fx - np.floor(fx)).astype(np.float32)
+    else:
+        fx = ((d + 0.5) * scale - 0.5).astype(np.float32)
+        sx = np.floor(fx).astype(np.int64)
+        fx = (fx - sx.astype(np.float32)).astype(np.float32)
     if horizontal:
         low, high = sx < 0, sx >= src - 1
         fx[low | high] = 0
@@ -81,6 +88,27 @@ def _resize_taps(dst: int, src: int, horizontal: bool):
     w0 = np.rint((np.float32(1) - fx) * one).astype(np.int64)
     w1 = np.rint(fx * one).astype(np.int64)
     return i0, i1, w0, w1
+
+
+def linear_taps_u8(image: np.ndarray, out_hw: Tuple[int, int],
+                   area: bool = False) -> np.ndarray:
+    """cv2's two-tap fixed-point resize of a uint8 image (its horizontal
+    integer sums, then its vector descale ``((((r0 >> 4) * b0) >> 16) +
+    (((r1 >> 4) * b1) >> 16) + 2) >> 2``), with the taps of INTER_LINEAR
+    or, ``area``, of INTER_AREA enlarging."""
+    h, w = image.shape[:2]
+    oh, ow = out_hw
+    # int32 holds every sum: a row's 255 * 2048, a column's 2^16 * 2048
+    x = image.reshape(h, w, -1).astype(np.int32)
+    xi0, xi1, xa0, xa1 = _resize_taps(ow, w, True, area)
+    yi0, yi1, yb0, yb1 = _resize_taps(oh, h, False, area)
+    xa0, xa1, yb0, yb1 = (t.astype(np.int32) for t in (xa0, xa1, yb0, yb1))
+    rows = x[:, xi0] * xa0[:, None] + x[:, xi1] * xa1[:, None]
+    acc = ((((rows[yi0] >> 4) * yb0[:, None, None]) >> 16)
+           + (((rows[yi1] >> 4) * yb1[:, None, None]) >> 16))
+    out = (acc + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8).reshape(
+        (oh, ow) + image.shape[2:])
 
 
 def resize_linear_u8(image: np.ndarray, out_hw: Tuple[int, int]
@@ -99,22 +127,20 @@ def resize_linear_u8(image: np.ndarray, out_hw: Tuple[int, int]
     oh, ow = out_hw
     if (oh, ow) == (h, w):
         return image.copy()
-    x = image.reshape(h, w, -1).astype(np.int64)
     if h == 2 * oh and w == 2 * ow:
+        x = image.reshape(h, w, -1).astype(np.int64)
         s = x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2]
-        out = (s + 2) >> 2
-    else:
-        xi0, xi1, xa0, xa1 = _resize_taps(ow, w, True)
-        yi0, yi1, yb0, yb1 = _resize_taps(oh, h, False)
-        rows = x[:, xi0] * xa0[:, None] + x[:, xi1] * xa1[:, None]
-        acc = ((((rows[yi0] >> 4) * yb0[:, None, None]) >> 16)
-               + (((rows[yi1] >> 4) * yb1[:, None, None]) >> 16))
-        out = (acc + 2) >> 2
-    return np.clip(out, 0, 255).astype(np.uint8).reshape(
-        (oh, ow) + image.shape[2:])
+        return ((s + 2) >> 2).astype(np.uint8).reshape(
+            (oh, ow) + image.shape[2:])
+    return linear_taps_u8(image, out_hw)
 
 
 # -------------------------------------------------- cv2.warpAffine, uint8
+
+
+_LOW = (1 << 29) - 1        # float64 mantissa bits below float32's
+_HALF = 1 << 28
+_TINY = float(np.finfo(np.float32).tiny)
 
 
 def fma_f32(a, b, c) -> np.ndarray:
@@ -124,21 +150,31 @@ def fma_f32(a, b, c) -> np.ndarray:
     split into its float64 rounding and the exact remainder (TwoSum). The
     cast to float32 can only round wrongly when the float64 sum sits
     exactly halfway between two float32 values, and the remainder's sign
-    then says which way the exact value lies."""
+    then says which way the exact value lies. Only the sums that may sit
+    there (their low 29 mantissa bits ``100...0``, or below float32's
+    normal range, where fewer bits remain) go through that fix-up."""
     p = (np.asarray(a, np.float32).astype(np.float64)
-         * np.asarray(b, np.float32).astype(np.float64))
-    c = np.asarray(c, np.float32).astype(np.float64)
+         * np.asarray(b, np.float32))
+    c = np.asarray(c, np.float32)
     s = p + c
-    bb = s - p
-    rem = (p - (s - bb)) + (c - bb)
-    r = s.astype(np.float32)
-    up = np.nextafter(r, np.float32(np.inf))
-    down = np.nextafter(r, np.float32(-np.inf))
-    r64 = r.astype(np.float64)
-    r = np.where((s == (r64 + up.astype(np.float64)) / 2) & (rem > 0), up, r)
-    r = np.where((s == (r64 + down.astype(np.float64)) / 2) & (rem < 0),
-                 down, r)
-    return r.astype(np.float32)
+    r = np.asarray(s.astype(np.float32))
+    maybe = ((s.view(np.int64) & _LOW) == _HALF) | (np.abs(s) < _TINY)
+    if maybe.any():
+        pt = np.broadcast_to(p, s.shape)[maybe]
+        ct = np.broadcast_to(c, s.shape)[maybe].astype(np.float64)
+        st = s[maybe]
+        bb = st - pt
+        rem = (pt - (st - bb)) + (ct - bb)
+        rt = r[maybe]
+        up = np.nextafter(rt, np.float32(np.inf))
+        down = np.nextafter(rt, np.float32(-np.inf))
+        r64 = rt.astype(np.float64)
+        rt = np.where((st == (r64 + up.astype(np.float64)) / 2) & (rem > 0),
+                      up, rt)
+        rt = np.where((st == (r64 + down.astype(np.float64)) / 2)
+                      & (rem < 0), down, rt)
+        r[maybe] = rt
+    return r
 
 
 def invert_affine(m: np.ndarray) -> np.ndarray:

@@ -132,7 +132,8 @@ def run(g: int = 10_000_000, q: int = 16, q_sweep: Sequence[int] = (),
     ``inspect(gallery, queries)``, when given, is called after each swept
     query batch's searches, with the 10M-row gallery still resident.
     Returns the figures: fill, sweep (one dict a (Q, precision)), dense_ms,
-    recall (one dict a mode)."""
+    recall (one dict a mode; ``top1_hits`` of the queries, of which
+    ``identity_present`` have their identity among the gallery's rows)."""
     import torch
 
     from ..device import resolve_device
@@ -236,6 +237,9 @@ def run(g: int = 10_000_000, q: int = 16, q_sweep: Sequence[int] = (),
             n = min(chunk, dense_g - filled)
             gr.add(np.arange(filled, filled + n), rows[filled:filled + n])
             filled += n
+        # queries whose identity has a row in the gallery (an identity
+        # draws about 4 of its rows; one in e^4 draws none)
+        present = int(np.isin(q_ident, ident).sum())
         for label, kw in (("adc", {}), ("rerank=100", {"rerank": 100})):
             _, pq_ids = gr.search(qc, k=k, **kw)
             hits = sum(len(set(pq_ids[i]) & set(exact_ids[i]))
@@ -243,7 +247,9 @@ def run(g: int = 10_000_000, q: int = 16, q_sweep: Sequence[int] = (),
             ident_hits = sum(ident[pq_ids[i][0]] == q_ident[i]
                              for i in range(q))
             out["recall"].append(dict(label=label, recall=hits / (q * k),
-                                      top1_same_identity=ident_hits / q))
+                                      top1_same_identity=ident_hits / q,
+                                      top1_hits=int(ident_hits),
+                                      identity_present=present))
             emit({"metric": f"pq_recall_at_{k} ({label}, G={dense_g}, "
                             f"{n_ident} identities, m={m})",
                   "value": round(hits / (q * k), 4), "unit": "recall",

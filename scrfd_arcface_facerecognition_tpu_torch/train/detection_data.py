@@ -108,8 +108,13 @@ def letterbox_example(image: np.ndarray, ann: Annotation,
     plan = letterbox_plan((h, w), input_size)
     nh, nw = plan.new_hw
     x = image.astype(np.float32)
-    x = np.einsum("oh,hwc->owc", _interp_matrix(nh, h), x)
-    x = np.einsum("pw,owc->opc", _interp_matrix(nw, w), x)
+    # an axis kept at its size has the identity as its matrix, and its
+    # product is the image itself (+ 0.0) when every value is finite
+    same = np.isfinite(x).all()
+    x = (x + np.float32(0) if same and nh == h else
+         np.einsum("oh,hwc->owc", _interp_matrix(nh, h), x))
+    x = (x + np.float32(0) if same and nw == w else
+         np.einsum("pw,owc->opc", _interp_matrix(nw, w), x))
     canvas = np.zeros((*input_size, image.shape[2]), np.float32)
     canvas[:nh, :nw] = x
     s = plan.det_scale

@@ -45,7 +45,9 @@ def test_import_leaves_no_jax_in_sys_modules():
         "       'tools.exp_microbatch', 'tools.exp_convergence',\n"
         "       'tools.bench_ingest', 'tools.profile_stages',\n"
         "       'tools.exp_r50', 'tools.exp_r50b', 'tools.exp_scrfd',\n"
-        "       'tools.trace_ops', 'tools.exp_int8')\n"
+        "       'tools.trace_ops', 'tools.exp_int8',\n"
+        "       'tools.host_images', 'tools.exp_decisions',\n"
+        "       'tools.replay_visits')\n"
         "bad += [m for m in new if p.__name__ + '.' + m not in sys.modules]\n"
         "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
@@ -106,7 +108,8 @@ def test_no_module_of_the_port_imports_jax_flax_or_the_jax_package():
                 "tools/bench_ingest.py", "tools/profile_stages.py",
                 "tools/exp_r50.py", "tools/exp_r50b.py",
                 "tools/exp_scrfd.py", "tools/trace_ops.py",
-                "tools/exp_int8.py"):
+                "tools/exp_int8.py", "tools/host_images.py",
+                "tools/exp_decisions.py", "tools/replay_visits.py"):
         assert mod in names, mod
     for path in files:
         bad = set(_imported_roots(path)) & set(_FORBIDDEN)
@@ -297,6 +300,27 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_decision_tools_raise_without_cuda(monkeypatch, tmp_path):
+    """The decision tools' entry points run on the card unless given
+    ``--device cpu``: without one they raise before any work, and write
+    nothing outside the directories they are given."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import (
+        exp_decisions, replay_visits)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    where = ["--synthetic", "3", "--out-dir", str(tmp_path / "out"),
+             "--workdir", str(tmp_path / "work")]
+    for make in (lambda: exp_decisions.main(["eval"] + where),
+                 lambda: exp_decisions.main(["train"] + where),
+                 lambda: replay_visits.main([
+                     "--workdir", str(tmp_path / "replay"),
+                     "--visits-json", str(tmp_path / "none.json")])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert sorted(os.listdir(tmp_path)) == ["out", "replay"]
 
 
 def test_gallery_entry_points_raise_without_cuda(monkeypatch):

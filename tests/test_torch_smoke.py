@@ -1531,10 +1531,11 @@ def test_signoff_phase_fails_on_a_graph_past_its_budget(monkeypatch):
 def _gallery_scale_on_the_cpu(monkeypatch):
     """Phase 23 at small sizes: an 8,000-row PQ gallery, the sweep at Q = 4
     and 8 with K2 held to its plain version at both, a 4,000-row recall
-    study, 1,500 rows through each crossing, a 4,000-row duplicate scan
-    with 20 planted pairs, the budget ladder at 2,048 rows with the
-    shipped rung; every codec trained on at most 2,000 rows in at most 10
-    k-means iterations; K2 counted where the wrapper would count it."""
+    study, 9,000 codes drawn in place and searched at Q = 8, 1,500 rows
+    through each crossing, a 4,000-row duplicate scan with 20 planted
+    pairs, the budget ladder at 2,048 rows with the shipped rung; every
+    codec trained on at most 2,000 rows in at most 10 k-means iterations;
+    K2 counted where the wrapper would count it."""
     from scrfd_arcface_facerecognition_tpu_torch.gallery import (
         pq as tpq, pq_adc)
     from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
@@ -1545,7 +1546,8 @@ def _gallery_scale_on_the_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "GALLERY_SCALE", dict(
         pq=dict(g=8000, q_sweep=(4, 8), dense_g=4000),
         k2_checks=((4, "hilo"), (4, "hi"), (8, "hi")),
-        sync_rows=1500, async_rows=1500,
+        wide=dict(g=9000, q=8, precision="hi"),
+        sync_rows=(1500,), async_rows=1500,
         merge=dict(g=4000, dups=20, threshold=0.95),
         budget=dict(rows=2048, queries=32)))
     monkeypatch.setattr(exp_pq_scale, "CODEC_TRAIN_ROWS", 2000)
@@ -1566,15 +1568,16 @@ def _gallery_scale_on_the_cpu(monkeypatch):
 
 
 def test_gallery_scale_phase_rehearsed_on_the_cpu(monkeypatch):
-    """Phase 23: every tool's lines said, K2 counted over the PQ-scale run
-    and both crossings (the comparison's launches not counted) and equal
-    to its plain version at each checked (Q, precision), the planted pairs
-    back, the shipped budget at every query, each part's seconds."""
+    """Phase 23: every tool's lines said, K2 counted over the PQ-scale run,
+    the search over the drawn codes and both crossings (the comparison's
+    launches not counted) and equal to its plain version at each checked
+    (Q, precision) and on the drawn codes, the planted pairs back, the
+    shipped budget at every query, each part's seconds."""
     rep, said = _gallery_scale_on_the_cpu(monkeypatch)
     out = chip_smoke.phase_gallery_scale(torch, rep)
-    # the sweep's 2 x 2 x 7 searches, then the recall study's 2; the two
-    # crossings' first PQ searches
-    assert out["launches"] == 30 + 2 and out["err"] == 0.0
+    # the sweep's 2 x 2 x 7 searches, then the recall study's 2, the drawn
+    # codes' search; the two crossings' first PQ searches
+    assert out["launches"] == 31 + 2 and out["err"] == 0.0
     text = "\n".join(said)
     for start in ("23a {\"metric\": \"pq_fill_rate (encode+scatter, "
                   "G=8000)\"",
@@ -1582,6 +1585,9 @@ def test_gallery_scale_phase_rehearsed_on_the_cpu(monkeypatch):
                   "23a K2 vs plain on the 8000 codes at Q=4 hilo",
                   "23a K2 vs plain on the 8000 codes at Q=4 hi:",
                   "23a K2 vs plain on the 8000 codes at Q=8 hi",
+                  "23a 9000 codes drawn on the card",
+                  "one search at Q=8 hi", "72000 scores (below 2^31), "
+                  "bit-equal",
                   "23a Q=8 hi: median", "pq_topk", "peak device memory",
                   "23a {\"metric\": \"pq_recall_at_5 (rerank=100",
                   "23b sync {\"rows\": 1500", "23b async {\"mode\": \"async\"",
@@ -1644,6 +1650,31 @@ def test_gallery_scale_phase_fails_on_an_async_build_that_raises(
     with pytest.raises(RuntimeError,
                        match="23b the background migration failed"):
         chip_smoke.scale_migration(torch, rep)
+
+
+def test_gallery_scale_phase_fails_on_a_present_identity_missed(
+        monkeypatch):
+    """23a's recall study: every query whose identity has a row in the
+    gallery must find that identity first."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import exp_pq_scale
+
+    rep, _ = _gallery_scale_on_the_cpu(monkeypatch)
+    run = exp_pq_scale.run
+
+    def one_missed(*a, **k):
+        out = run(*a, **k)
+        r = out["recall"][-1]
+        assert r["identity_present"] <= 16 and r["top1_hits"] == r[
+            "identity_present"]
+        r["top1_hits"] -= 1
+        return out
+
+    monkeypatch.setattr(exp_pq_scale, "run", one_missed)
+    with pytest.raises(RuntimeError, match=r"23a top-1 same identity for "
+                                           r"\d+ queries, not the \d+ whose "
+                                           r"identity the gallery holds "
+                                           r"\(rerank=100"):
+        chip_smoke.scale_search(torch, rep)
 
 
 @pytest.mark.parametrize("part", ["budget", "crossing"])
@@ -1984,3 +2015,227 @@ def test_measure_phase_runs_the_tools_defaults():
     for fn, name, want in ((exp_scrfd.run, "batch", 32),
                            (trace_ops.run, "what", "backbone")):
         assert default(fn, name) == want
+
+
+# ------------------------------------------------------------------ phase 26
+
+
+def _decisions_on_the_cpu(monkeypatch):
+    """Phase 26 at small sizes: 4 eval, 3 train and 2 val identities, 2
+    visits an identity and 2 verification pairs, 2 steps of each trainer
+    (batches of 2 and 8, eval every 2) from the committed weights, the
+    replay's 6 visits (2 of them missing) through det_500m + w600k_mbf at
+    128; K1 counted where the wrapper would count it."""
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    rep, said = _no_card(monkeypatch, wa)
+    crops = ops.warp_align_crops
+
+    def counted(*a, **k):
+        wa.launches += 1
+        return crops(*a, **k)
+
+    monkeypatch.setattr(ops, "warp_align_crops", counted)
+    monkeypatch.setattr(chip_smoke, "DECISIONS", dict(
+        ids=dict(eval=4, train=3, val=2), seed=0,
+        eval=dict(visits=2, pairs=2),
+        train=dict(det_steps=2, emb_steps=2, eval_every=2, det_batch=2,
+                   emb_batch=8, per_id=2),
+        replay=dict(visits=6, misses=2, det="det_500m", rec="w600k_mbf",
+                    det_size=(128, 128))))
+    return rep, said
+
+
+def test_decisions_phase_rehearsed_on_the_cpu(monkeypatch):
+    """Phase 26: the eval's metrics at f32 equal on both runs and the bf16
+    run's counts; the trainers' JAX line keys, the checkpoints read back
+    and eval from them equal; the replay's counts; K1 counted over the
+    three parts and held to its plain version; each part's seconds."""
+    rep, said = _decisions_on_the_cpu(monkeypatch)
+    out = chip_smoke.phase_decisions(torch, rep)
+    assert out["launches"] > 0 and out["err"] == 0.0
+    assert set(out["secs"]) == {"a", "b", "c"}
+    a = out["out"]["a"]
+    assert a["tie"] is None
+    assert a["f32"]["counters"] == a["cpu"]["counters"]
+    assert a["f32"]["n_visits"] == 4 * 2 + 2
+    c = out["out"]["c"]
+    assert c["visits_handled"] == 6 and c["results"]["download_failed"] == 2
+    text = "\n".join(said)
+    for start in ('26a card f32 {"entry": "json"',
+                  "the card's metrics equal the CPU's",
+                  '26a card bf16 {"entry": "json"', "10 visits handled of 10",
+                  '26b {"curve": "decisions_det_ap50", "step": 2',
+                  '26b {"stage": "extract_aligned"',
+                  '26b {"stage": "model_selection"',
+                  "read back bit for bit, eval from the files equal",
+                  '26c {"results": ', "6 visits (2 missing from the cache)",
+                  "= new persons", "26 K1 ", "vs plain on the card's inputs",
+                  "phase 26 took"):
+        assert start in text, start
+
+
+def _stub_parts(monkeypatch, part_a=lambda *a: {}):
+    monkeypatch.setattr(chip_smoke, "decisions_eval", part_a)
+    monkeypatch.setattr(chip_smoke, "decisions_train", lambda *a: {})
+    monkeypatch.setattr(chip_smoke, "decisions_replay", lambda *a: {})
+
+
+def test_decisions_phase_fails_when_k1_is_launched_no_time(monkeypatch):
+    rep, _ = _decisions_on_the_cpu(monkeypatch)
+    _stub_parts(monkeypatch)
+    with pytest.raises(RuntimeError,
+                       match="26 the decision tools launched K1 no time"):
+        chip_smoke.phase_decisions(torch, rep)
+
+
+def test_decisions_phase_fails_on_a_k1_one_u8_off(monkeypatch):
+    from scrfd_arcface_facerecognition_tpu_torch import ops
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    rep, _ = _decisions_on_the_cpu(monkeypatch)
+
+    def one_face(*a):
+        frames = torch.zeros((1, 64, 64, 3), dtype=torch.uint8) + 7
+        m = torch.tensor([[[0.5, 0.0, 3.0], [0.0, 0.5, 2.0]]])
+        ops.warp_align_crops(frames, m, torch.zeros(1, dtype=torch.int32))
+        return {}
+
+    _stub_parts(monkeypatch, one_face)
+    plain = wa.warp_align_plain
+    monkeypatch.setattr(wa, "warp_align_crops",
+                        lambda *a, **k: plain(*a, **k) + 1 / 127.5)
+    with pytest.raises(RuntimeError, match=r"warp_align: max abs err "
+                                           r"(1\.0|0\.99999)"):
+        chip_smoke.phase_decisions(torch, rep)
+
+
+def _metrics(**changes):
+    m = {"entry": "json", "elapsed_s": 1.0,
+         "counters": {"processed": 8, "new_persons": 3},
+         "verification": {"pairs": 4, "same_sim_mean": 0.81234}}
+    for k, v in changes.items():
+        m[k] = v
+    return m
+
+
+def test_hold_decisions_names_ties_and_fails_the_rest():
+    thr = chip_smoke.decision_thresholds()
+    assert 0.55 in thr and 0.95 in thr and 0.8 in thr
+    trace = [("search", [0.7, 0.2]), ("compare", [0.3])]
+    # equal (elapsed_s aside, the means within 1e-4)
+    assert chip_smoke.hold_decisions(
+        _metrics(), _metrics(elapsed_s=9.0, verification={
+            "pairs": 4, "same_sim_mean": 0.81239}), trace, trace,
+        thr) is None
+    changed = _metrics(counters={"processed": 8, "new_persons": 4})
+    # a decision that flips at a tie (0.55 +- 3e-5) explains the change
+    tie = chip_smoke.hold_decisions(
+        _metrics(), changed, [("search", [0.55003])],
+        [("search", [0.54998])], thr)
+    assert "flipped at a tie" in tie and "0.55" in tie
+    # a flip away from the threshold fails
+    with pytest.raises(RuntimeError, match=r"26a metrics\['counters'\].*"
+                                           r"decision 0 \(search\) flipped"
+                                           r".*not a tie"):
+        chip_smoke.hold_decisions(_metrics(), changed, [("search", [0.56])],
+                                  [("search", [0.54])], thr)
+    # a changed decision with every similarity equal fails
+    with pytest.raises(RuntimeError, match="no similarity the engines "
+                                           "decided on flipped"):
+        chip_smoke.hold_decisions(_metrics(), changed, trace, trace, thr)
+    with pytest.raises(RuntimeError, match="similarity 0.7000000 on the "
+                                           "card, 0.6990000 on the CPU"):
+        chip_smoke.hold_decisions(_metrics(), changed, trace,
+                                  [("search", [0.699, 0.2])], thr)
+
+
+def test_decisions_phase_fails_on_a_changed_f32_decision(monkeypatch,
+                                                        tmp_path):
+    """The card's f32 eval (the first of 26a's runs) with one more person
+    than the CPU's, its similarities unchanged: no tie explains it."""
+    from scrfd_arcface_facerecognition_tpu_torch.tools import exp_decisions
+
+    rep, _ = _decisions_on_the_cpu(monkeypatch)
+    run = exp_decisions.run_decision_eval
+    calls = []
+
+    def first_changed(*a, **k):
+        m = run(*a, **k)
+        calls.append(1)
+        if len(calls) == 1:
+            m["counters"]["new_persons"] += 1
+        return m
+
+    monkeypatch.setattr(exp_decisions, "run_decision_eval", first_changed)
+    data = chip_smoke.decision_data()
+    trees = exp_decisions.load_checkpoints()[:2]
+    with pytest.raises(RuntimeError, match=r"26a metrics\['counters'\]"
+                                           r"\['new_persons'\]: .* and no "
+                                           r"similarity the engines decided "
+                                           r"on flipped"):
+        chip_smoke.decisions_eval(torch, rep, data, trees, str(tmp_path))
+
+
+def test_phases_parse_and_pull_in_what_they_need():
+    assert chip_smoke.parse_phases("1-4,26") == {1, 2, 3, 4, 26}
+    assert chip_smoke.parse_phases(" 23 ") == {23}
+    for bad in ("0-3", "27", "5-4", "", "a", "3,,4"):
+        with pytest.raises(ValueError, match="--phases"):
+            chip_smoke.parse_phases(bad)
+    # 1 and 2 always run; 3 and 26 need nothing
+    assert chip_smoke.resolve_phases({1, 2, 3, 26}) == ([3, 26], [], {})
+    phases, added, why = chip_smoke.resolve_phases({5, 8, 24})
+    assert phases == [4, 5, 7, 8, 13, 24] and added == [4, 7, 13]
+    assert why == {4: 7, 7: 8, 13: 24}
+    phases, added, why = chip_smoke.resolve_phases({16, 17, 20, 21})
+    assert phases == [4, 7, 12, 13, 15, 16, 17, 18, 19, 20, 21]
+    assert why[15] == 16 and why[13] == 15 and why[12] == 17
+    assert why[18] == why[19] == 21
+    # every need is an earlier phase, and the default runs them all
+    assert all(n < p for p, ns in chip_smoke.PHASE_NEEDS.items() for n in ns)
+    args, selected = chip_smoke.parse_args([])
+    assert selected == set(range(3, 27)) and not args.full_scale
+    assert chip_smoke.parse_args(["--full-scale"])[1] == {23}
+    assert chip_smoke.parse_args(["--phases", "26", "--full-scale"])[1] == {
+        23, 26}
+    with pytest.raises(SystemExit):
+        chip_smoke.parse_args(["--phases", "0"])
+
+
+def test_the_default_phase23_still_searches_past_2_31():
+    """The default call's cut phase 23 keeps a search of Q x G past 2^31
+    scores (the drawn codes at Q = 256 "hi"), and --full-scale runs the
+    JAX tools' defaults."""
+    wide = chip_smoke.GALLERY_SCALE["wide"]
+    assert wide["q"] * wide["g"] > 2 ** 31 and wide["precision"] == "hi"
+    assert wide["g"] == 10_000_000 and wide["q"] == 256
+    full = chip_smoke.GALLERY_SCALE_FULL
+    assert full["wide"] is None
+    assert full["pq"] == dict(g=10_000_000, q_sweep=(16, 64, 128, 256),
+                              dense_g=2_000_000)
+    assert (256, "hi") in full["k2_checks"]
+    assert 256 * full["pq"]["g"] > 2 ** 31
+    assert full["sync_rows"] == (1_000_000, 2_000_000)
+    assert full["merge"]["g"] == 1_000_000
+    assert full["budget"] == dict(rows=1_000_000, queries=256)
+    # the default keeps both crossings and an exact scan, smaller
+    d = chip_smoke.GALLERY_SCALE
+    assert d["sync_rows"] and d["async_rows"] and d["merge"]["dups"] > 0
+
+
+def test_kernel_rows_list_the_kernels_whose_timing_phase_ran():
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import pq_adc
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    t = dict(ms=1.0, plain_ms=2.0, bound_ms=0.5, bound_by="bytes",
+             library_ms=3.0)
+    r = {4: dict(launches=5, err=0.0, t=t), 26: dict(launches=7, err=0.0),
+         23: dict(launches=3, err=0.0)}
+    rows = chip_smoke.kernel_rows(torch, wa, pq_adc, r)
+    assert [k["name"] for k in rows] == [wa.NAME]
+    assert rows[0]["launches"] == 12 and rows[0]["ms"] == 1.0
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert set(rows[0]) == keys
