@@ -4741,7 +4741,7 @@ def phase_train(torch, rep):
 # ---------------------------------------------------------------------
 # phase 19: the SCRFD detector: train, checkpoint, AP, export, serve
 
-# the trainer's annotate spans (train/scrfd_train.py), in step order
+# the trainer's spans (train/scrfd_train.py), in step order
 DET_SPANS = ("scrfd_train.forward", "scrfd_train.assign_loss",
              "scrfd_train.backward", "scrfd_train.update")
 
@@ -4861,11 +4861,17 @@ def span_times(torch, fn):
         return None
     from torch.profiler import ProfilerActivity, profile
 
+    from scrfd_arcface_facerecognition_tpu_torch import stages
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    stages.enable()                 # the spans open their profiler ranges
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        stages.disable()
     events = prof.events()
     spans = {n: 0.0 for n in DET_SPANS}
     for e in events:
@@ -5772,22 +5778,22 @@ def timed_steps(torch, step, n_warm, n_timed):
 
 
 def host_split(torch, fn, trainer, prefix):
-    """fn() (one meshed step) under the CPU profiler: the host ms of each
-    of the trainer's spans (``<prefix>.forward_loss``, ``.backward``,
-    ``.update``), and of the forward's barrier waits, the mean over the
-    data slots, with the step's exchange count."""
-    from torch.profiler import ProfilerActivity, profile
+    """fn() (one meshed step) under the port's span recorder: the host ms
+    of each of the trainer's spans (``<prefix>.forward_loss``,
+    ``.backward``, ``.update``), and of the forward's barrier waits, the
+    mean over the data slots, with the step's exchange count."""
+    from scrfd_arcface_facerecognition_tpu_torch import stages
 
     sync_all(torch)
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    stages.enable()
+    try:
         fn()
         sync_all(torch)
-    spans = {}
-    for e in prof.events():
-        if e.name.startswith(prefix + "."):
-            key = e.name.split(".", 1)[1]
-            spans[key] = spans.get(key, 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3
+    finally:
+        stages.disable()
+    spans = {name.split(".", 1)[1]: rec["ms"]
+             for name, rec in stages.report().items()
+             if name.startswith(prefix + ".")}
     group = trainer._data.last_group
     spans["barrier waits"] = 1e3 * sum(group.waited_s) / group.size
     return spans, group.exchanges

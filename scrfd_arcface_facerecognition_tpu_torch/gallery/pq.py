@@ -31,7 +31,7 @@ import torch
 from ..device import full_f32_matmul, on_device, resolve_device
 from ..parallel.mesh import Mesh, Slot
 from ..parallel.sharded_gallery import RowShards, local_top_k, merge_top_k
-from ..stages import stage
+from ..stages import span, stage
 from .pq_adc import adc_scores_plain, pq_adc_scores
 
 
@@ -364,32 +364,33 @@ class PQGallery:
         precision: the ADC pass's LUT, "hilo" (exact f32) or "hi" (bf16);
         default "hi" when an exact rerank follows, "hilo" otherwise.
         """
-        q = np.atleast_2d(np.asarray(queries, np.float32))
-        k_fetch = max(k, rerank) if rerank else k
-        if precision is None:
-            precision = "hi" if rerank else "hilo"
-        if rerank and self._exact is None:
-            raise ValueError("rerank needs PQGallery(keep_exact=True)")
-        s, i = sharded_pq_top_k(q, self.codec, self._shards, k_fetch,
-                                precision)
-        with stage("pq_topk"):
-            s = s.cpu().numpy()
-            i = i.cpu().numpy()
-        if s.shape[1] < k_fetch:
-            # fewer candidates than asked (capacity < k, or the shards'
-            # together < k): honor the (Q, k) contract, padding with -inf
-            # scores (masked to ids=-1 below)
-            pad = ((0, 0), (0, k_fetch - s.shape[1]))
-            s = np.pad(s, pad, constant_values=-np.inf)
-            i = np.pad(i, pad)
-        if rerank:
-            with stage("pq_rerank"):
-                exact = np.einsum("qd,qrd->qr", q, self._exact[i])
-                exact = np.where(np.isfinite(s), exact, -np.inf)
-                order = np.argsort(-exact, axis=1)[:, :k]
-                s = np.take_along_axis(exact, order, axis=1)
-                i = np.take_along_axis(i, order, axis=1)
-        else:
-            s, i = s[:, :k], i[:, :k]
-        ids = np.where(np.isfinite(s), self._ids[i], -1)
-        return np.where(np.isfinite(s), s, 0.0), ids
+        with span("pq.search"):
+            q = np.atleast_2d(np.asarray(queries, np.float32))
+            k_fetch = max(k, rerank) if rerank else k
+            if precision is None:
+                precision = "hi" if rerank else "hilo"
+            if rerank and self._exact is None:
+                raise ValueError("rerank needs PQGallery(keep_exact=True)")
+            s, i = sharded_pq_top_k(q, self.codec, self._shards, k_fetch,
+                                    precision)
+            with stage("pq_topk"), span("pq.readback"):
+                s = s.cpu().numpy()
+                i = i.cpu().numpy()
+            if s.shape[1] < k_fetch:
+                # fewer candidates than asked (capacity < k, or the shards'
+                # together < k): honor the (Q, k) contract, padding with -inf
+                # scores (masked to ids=-1 below)
+                pad = ((0, 0), (0, k_fetch - s.shape[1]))
+                s = np.pad(s, pad, constant_values=-np.inf)
+                i = np.pad(i, pad)
+            if rerank:
+                with stage("pq_rerank"):
+                    exact = np.einsum("qd,qrd->qr", q, self._exact[i])
+                    exact = np.where(np.isfinite(s), exact, -np.inf)
+                    order = np.argsort(-exact, axis=1)[:, :k]
+                    s = np.take_along_axis(exact, order, axis=1)
+                    i = np.take_along_axis(i, order, axis=1)
+            else:
+                s, i = s[:, :k], i[:, :k]
+            ids = np.where(np.isfinite(s), self._ids[i], -1)
+            return np.where(np.isfinite(s), s, 0.0), ids

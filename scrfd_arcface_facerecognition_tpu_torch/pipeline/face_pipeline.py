@@ -28,7 +28,7 @@ from .. import ops
 from ..device import on_device, resolve_device
 from ..parallel.data_parallel import Replicas, ShardedFrames
 from ..parallel.sharded_gallery import RowShards
-from ..stages import stage
+from ..stages import interval, now, span, stage
 from .detector import (Detections, Detector, FrameStaging, as_frames,
                        detect_batch, detect_batch_dynamic)
 from .embedder import Embedder, embed_crops, embed_faces
@@ -170,9 +170,10 @@ class CountReadback:
             self.host = count
 
     def value(self) -> int:
-        if self.event is not None:
-            self.event.synchronize()
-        return int(self.host)
+        with span("stream.count_wait"):
+            if self.event is not None:
+                self.event.synchronize()
+            return int(self.host)
 
 
 class Placement(NamedTuple):
@@ -339,12 +340,13 @@ class FacePipeline:
         way to the host; nothing here waits for the device. Sharded
         frames give one ``Dispatched`` a slot, every slot's detect queued
         before any count is read."""
-        if isinstance(frames, ShardedFrames):
-            return [self._dispatch_part(part, placed, max_num, metric)
-                    for part, placed in zip(frames.parts,
-                                            self._placed(frames))]
-        return self._dispatch_part(self._staging(frames), self._home(),
-                                   max_num, metric)
+        with span("stream.dispatch"):
+            if isinstance(frames, ShardedFrames):
+                return [self._dispatch_part(part, placed, max_num, metric)
+                        for part, placed in zip(frames.parts,
+                                                self._placed(frames))]
+            return self._dispatch_part(self._staging(frames), self._home(),
+                                       max_num, metric)
 
     def _dispatch_part(self, frames: torch.Tensor, placed: Placement,
                        max_num: int, metric: str) -> Dispatched:
@@ -407,14 +409,20 @@ class FacePipeline:
         keeping ``depth`` batches in flight: batches
         i+1..i+depth are dispatched before batch i's face count is read,
         so the count's trip to the host overlaps device work instead of
-        draining the queue. ``depth`` below 1 acts as 1."""
+        draining the queue. ``depth`` below 1 acts as 1. A batch's wait
+        in ``pending`` is the ``stream.queued`` interval."""
         pending = deque()
         for frames in frames_iter:
-            pending.append(self._dispatch(frames, max_num, metric))
+            pending.append((self._dispatch(frames, max_num, metric), now()))
             if len(pending) > max(1, depth):
-                yield self._finish(pending.popleft())
+                yield self._finish_queued(*pending.popleft())
         while pending:
-            yield self._finish(pending.popleft())
+            yield self._finish_queued(*pending.popleft())
+
+    def _finish_queued(self, batch: Union[Dispatched, List[Dispatched]],
+                       dispatched_at: int) -> PipelineOutput:
+        interval("stream.queued", dispatched_at, now())
+        return self._finish(batch)
 
     @staticmethod
     def _round_bucket(count: int, cap: int) -> int:
@@ -437,10 +445,11 @@ class FacePipeline:
         count: the batch's one wait for the device. A sharded batch's
         parts each take the bucket of their own count and are joined in
         frame order on the first part's device."""
-        if isinstance(batch, list):
-            return join_outputs([self._finish_part(d) for d in batch],
-                                batch[0].frames.device)
-        return self._finish_part(batch)
+        with span("stream.finish"):
+            if isinstance(batch, list):
+                return join_outputs([self._finish_part(d) for d in batch],
+                                    batch[0].frames.device)
+            return self._finish_part(batch)
 
     def _finish_part(self, batch: Dispatched) -> PipelineOutput:
         frames, det, placed = batch.frames, batch.det, batch.placed

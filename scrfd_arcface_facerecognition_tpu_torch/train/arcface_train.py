@@ -67,7 +67,7 @@ from ..models.weights import (train_state_parts, variables_from_module,
 from ..ops.nms import stable_top_k
 from ..ops.similarity import l2_normalize
 from ..parallel.collectives import ordered_sum
-from ..utils.profiling import annotate
+from ..stages import span
 from .state import (ColumnShards, DataSlots, check_trainable, host_copy,
                     module_from, placed_module, sgd_update_)
 
@@ -352,7 +352,7 @@ class ArcFaceTrainer:
             else:
                 loss, grads = self._mesh_loss_grads(state, images, labels,
                                                     scores)
-        with annotate("arcface_train.update"):
+        with span("arcface_train.update"):
             self.last_grad_norm = sgd_update_(
                 params, grads, traces, self.lr(state.step),
                 self.weight_decay)
@@ -391,13 +391,13 @@ class ArcFaceTrainer:
                                                self.scale, self.margin)
                 return (softmax_xent(logits, new_parts[i])
                         * matched_parts[i]).sum()
-        with annotate("arcface_train.forward_loss"):
+        with span("arcface_train.forward_loss"):
             total = ordered_sum(data.run(slot), self.device)
             if sample is None:
                 loss = total / sum(p.shape[0] for p in parts)
             else:
                 loss = total / sample[2].sum().clamp_min(1)
-        with annotate("arcface_train.backward"):
+        with span("arcface_train.backward"):
             grads = data.grads(loss, state.backbone, replicas, _pieces(w))
         return loss, grads
 

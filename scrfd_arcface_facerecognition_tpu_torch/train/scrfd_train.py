@@ -62,7 +62,7 @@ from ..ops.anchors import (SCRFD_NUM_ANCHORS, SCRFD_STRIDES,
 from ..ops.decode import distance2bbox
 from ..ops.nms import stable_top_k
 from ..parallel.collectives import ordered_sum
-from ..utils.profiling import annotate
+from ..stages import span
 from .state import (DataSlots, check_trainable, module_from, placed_module,
                     sgd_update_)
 
@@ -467,9 +467,9 @@ class SCRFDTrainer:
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The step's loss and metrics (the detector in training mode: BN
         moves its running statistics once)."""
-        with annotate("scrfd_train.forward"):
+        with span("scrfd_train.forward"):
             outputs = state.model.train()(images)
-        with annotate("scrfd_train.assign_loss"):
+        with span("scrfd_train.assign_loss"):
             return scrfd_loss(outputs, gt_boxes, gt_kps, gt_valid,
                               self.loss_cfg, gt_kps_valid=gt_kps_valid)
 
@@ -497,9 +497,9 @@ class SCRFDTrainer:
                     state, put(images, self.dtype), put(gt_boxes, self.dtype),
                     put(gt_kps, self.dtype), put(gt_valid, torch.bool),
                     put(gt_kps_valid, torch.bool))
-                with annotate("scrfd_train.backward"):
+                with span("scrfd_train.backward"):
                     grads = list(torch.autograd.grad(loss, params))
-        with annotate("scrfd_train.update"):
+        with span("scrfd_train.update"):
             self.last_grad_norm = sgd_update_(
                 list(params), grads, [state.trace[n] for n in names],
                 self.lr(state.step), self.weight_decay)
@@ -522,12 +522,12 @@ class SCRFDTrainer:
             return scrfd_loss_sums(outputs, boxes[i], kps[i], valid[i],
                                    self.loss_cfg, gt_kps_valid=kvalid[i])
 
-        with annotate("scrfd_train.forward_loss"):
+        with span("scrfd_train.forward_loss"):
             sums = data.run(slot)
             loss, metrics = scrfd_loss_from_sums(
                 {k: ordered_sum([s[k] for s in sums], self.device)
                  for k in sums[0]}, self.loss_cfg)
-        with annotate("scrfd_train.backward"):
+        with span("scrfd_train.backward"):
             grads = data.grads(loss, state.model, replicas, [])
         return loss, metrics, grads
 

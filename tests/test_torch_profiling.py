@@ -1,34 +1,35 @@
-"""The port's ``utils/profiling.py`` on the CPU: ``StageTimer``'s report,
-``trace(None)`` a no-op, ``trace(dir)`` writing a Chrome trace that holds
-the ``annotate`` spans, and ``sync`` over nested tensors."""
+"""The port's ``utils/profiling.py`` on the CPU, beside the tracer it
+serves: the recorder's report (``stages.py``), ``trace(None)`` a no-op,
+``trace(dir)`` writing a Chrome trace that holds the recorder's spans,
+and ``sync`` over nested tensors."""
 import json
 import os
 import time
 
 import torch
 
+from scrfd_arcface_facerecognition_tpu_torch import stages
 from scrfd_arcface_facerecognition_tpu_torch.utils import profiling
 
 
-def test_stage_timer_reports_each_stage(monkeypatch):
-    synced = []
-    monkeypatch.setattr(profiling, "sync", synced.append)
-    t = profiling.StageTimer()
-    for _ in range(2):
-        with t.stage("detect", items=8) as s:
-            s["result"] = torch.ones(3)
-            time.sleep(0.01)
-    with t.stage("embed", sync_result=False) as s:
-        s["result"] = torch.zeros(1)
-    rep = t.report()
-    assert set(rep) == {"detect", "embed"}
-    d = rep["detect"]
-    assert d["calls"] == 2 and d["total_s"] >= 0.02
-    assert abs(d["ms_per_call"] - d["total_s"] * 500) < 0.1
-    assert d["items_per_s"] > 0 and "items_per_s" not in rep["embed"]
-    assert len(synced) == 2           # only the stages that asked for it
-    t.reset()
-    assert t.report() == {}
+def test_stage_timer_reports_each_stage():
+    """The port's one timer of stages and spans is the tracer's recorder:
+    host ms and counts by name, nothing once reset."""
+    stages.enable()
+    try:
+        for _ in range(2):
+            with stages.stage("scrfd"):
+                time.sleep(0.01)
+        with stages.span("scrfd_train.update"):
+            torch.zeros(1)
+        rep = stages.report()
+    finally:
+        stages.disable()
+        stages.reset()
+    assert set(rep) == {"scrfd", "scrfd_train.update"}
+    assert rep["scrfd"]["n"] == 2 and rep["scrfd"]["ms"] >= 20
+    assert rep["scrfd_train.update"]["n"] == 1
+    assert stages.report() == {}
 
 
 def test_sync_walks_nested_tensors_and_waits_on_cuda_devices(monkeypatch):
@@ -57,9 +58,14 @@ def test_trace_none_is_a_no_op(tmp_path):
 
 def test_trace_writes_a_chrome_trace_with_the_spans(tmp_path):
     out = tmp_path / "trace"
-    with profiling.trace(str(out)) as prof:
-        with profiling.annotate("scrfd_train.forward"):
-            torch.randn(32, 32) @ torch.randn(32, 32)
+    stages.enable()
+    try:
+        with profiling.trace(str(out)) as prof:
+            with stages.span("scrfd_train.forward"):
+                torch.randn(32, 32) @ torch.randn(32, 32)
+    finally:
+        stages.disable()
+        stages.reset()
     assert prof is not None
     path = out / "trace.json"
     assert path.exists()
