@@ -44,13 +44,16 @@ non-zero exit if it fails:
    queries; AutoGallery(tier="pq") on the card takes 1,000,000 synthetic
    identity rows (the embeddings among them at known ids) in one
    add_batch, migrates (codec training, encoding, a 2,000,000-row
-   PQGallery) and answers search_batch(k=5) with K2's launch count reset
-   just before and read just after; recall@1 of noisy views after the
-   exact rerank (>= 0.95), each embedding finds itself (cosine >= 0.9999),
-   stage times, PQGallery.search(rerank=0), the dense GalleryStore at the
-   same rows; K2's times at these shapes against its bound, its plain
-   version and ``embedding_bag``, then on the tier's filled rows alone
-   (the tier is scored whole, and half of it is empty) and at Q=1, 4, 16;
+   PQGallery) and answers search_batch(k=5) with K2's launch count
+   (``launches`` + ``topk_launches``: the rerank shortlist of 32 takes the
+   top-k fused into K2) reset just before and read just after; recall@1
+   of noisy views after the exact rerank (>= 0.95), each embedding finds
+   itself (cosine >= 0.9999), stage times, PQGallery.search(rerank=0),
+   the dense GalleryStore at the same rows; K2's times at these shapes
+   against its bound, its plain version and ``embedding_bag``, then on
+   the tier's filled rows alone (the tier is scored whole, and half of it
+   is empty) and at Q=1, 4, 16; the fused top-k bit-equal to the plain
+   chain and to K2 + mask + sort at the path's shapes;
 8. the PQ gallery on the card against the CPU at 20,000 rows (same codec,
    codes and queries): ids equal, scores within 1e-5;
 9. kernel K3 (the 5-pass band-mix warp, ``warp_band``) on its experiment's
@@ -107,7 +110,8 @@ non-zero exit if it fails:
    inputs; then on the PQ tier with an identity-coded app
    (``IdentityApp``) over ``ENGINE_PQ``'s visits in batches, K2's
    launches counted (the gallery crosses to PQ mid-run), K2 against its
-   plain version on the LUT and codes of every search the tier ran, the
+   plain version on the LUT and codes of every search the tier ran and
+   its fused top-k against the plain chain and K2 + mask + sort, the
    decisions (the SQLite rows and the clustering_results JSON, without
    timestamps) equal to the same run on the CPU; (d)
    ``FaceComparison.process_face_comparisons`` on ``FACADE["pairs"]``
@@ -201,9 +205,9 @@ non-zero exit if it fails:
    with ``serving.microbatch`` on, 8 concurrent comparison requests that
    must coalesce (batch width > 1) and answer as the sequential ones;
    the PQ tier through the web (``IdentityApp``, ``ENGINE_PQ``'s visits
-   in POSTs), K2 counted and held to its plain version on every search,
-   the decisions equal to a CPU run's; an ERROR logged by the port fails
-   the phase;
+   in POSTs), K2 counted and held to its plain version on every search
+   (its fused top-k to both chains), the decisions equal to a CPU
+   run's; an ERROR logged by the port fails the phase;
 18. train, checkpoint, export, serve (``TRAIN``): (a) the ArcFace
    trainer on w600k_mbf at full width, batch 16, 1,000 classes, on the
    card and on the CPU from one seeded state, full softmax and Partial FC
@@ -263,7 +267,8 @@ non-zero exit if it fails:
    codec and rows in a 2,000,000-row PQGallery(mesh=): K2 launched once a
    shard a search, in "hilo" and with rerank 32 in "hi", ids and scores
    bit-equal to phase 7's unsharded gallery, K2 held to its plain version
-   on a shard; AutoGallery(tier="pq", mesh=) through a migration and
+   on a shard, its fused top-k to both chains on the last shard (rows
+   offset); AutoGallery(tier="pq", mesh=) through a migration and
    snapshots restored unmeshed and back onto the mesh, the same hits; (c)
    frame DP with phase 4's det_10g + w600k_r50, gallery 128, 8 x 1080p,
    max_num 10, split over the slots, against one unsharded call at f32
@@ -323,7 +328,8 @@ non-zero exit if it fails:
    (an identity draws about 4 rows, none for one query in ~50; at the
    250,000 rows one of the 16 has none); then 10,000,000 codes drawn on the card (640 MB, no host
    fill), one search at Q = 256 "hi" (2.56e9 scores, past 2^31; every id
-   >= 0) and K2 bit-equal to its plain version on the whole (Q, G); (b)
+   >= 0), K2 bit-equal to its plain version on the whole (Q, G) and the
+   fused top-k to the plain chain and K2 + mask + sort; (b)
    ``tools.exp_migration``: the synchronous and the background crossing
    at 250,000 rows, top-1 self 16/16 after each and on every probe while
    the background build runs, which must not fail; (c)
@@ -331,7 +337,14 @@ non-zero exit if it fails:
    0.95: exactly the planted pairs, G - 2,000 groups after the
    union-find; (d) ``tools.exp_train_budget`` at 250,000 rows, 256
    queries: 256/256 at the shipped codec budget (50,000 rows, 10
-   iterations), the other rungs reported; each part's seconds. With
+   iterations), the other rungs reported; (e) the benchmark's lookup cell
+   (``LOOKUP_CELL``: 10,000,000 codes of 1,000,000 identities drawn on the
+   card, 64 queries near rows): K2 bit-equal to its plain version there,
+   the fused search (k = 5, "hilo") bit-equal to the plain chain and the
+   unfused one (K2, mask, stable sort), the fused top-k to both at k = 5
+   and 32 in both precisions, and the device ms of the fused top-k (with
+   its own bound), K2 alone, K2 + mask + sort and the plain chain at the
+   cell's shape; each part's seconds. With
    ``--full-scale`` (``GALLERY_SCALE_FULL``) the tools' defaults: the
    10,000,000-row host fill and the sweep 16, 64, 128, 256 on it (K2
    checked on its codes, the drawn gallery not built), the 2,000,000-row
@@ -576,25 +589,33 @@ SIGNOFF = dict(frames=3, gate_slots=8)
 # the card, one search past 2^31 scores (Q x G) and K2 held to its plain
 # version on it (None where the swept gallery is itself past 2^31); (b)
 # the synchronous crossing at each sync_rows, the background one at
-# async_rows; (c) the duplicate scan; (d) the codec budget. The default
+# async_rows; (c) the duplicate scan; (d) the codec budget; (e) the
+# lookup cell, the fused top-k against the unfused path. The default
 # call cuts the tools' defaults (GALLERY_SCALE_FULL, --full-scale) to fit
 # beside the other phases: the 10M host fill, the sweep's Q = 64 and 128,
 # the 2M-row dense and recall rows, the 1M and 2M crossings, the 1M scan
 # and the 1M budget rows
+# 23e: the benchmark's lookup cell (10M rows of 1M identities, a 32nd of
+# a row's sub-codes drawn anew; 64 queries near rows, top 5 in "hilo"), the
+# fused top-k against the plain chain and K2 + mask + sort
+LOOKUP_CELL = dict(g=10_000_000, identities=1_000_000, changed=1 / 32,
+                   q=64, k=5, precision="hilo", noise=0.3)
 GALLERY_SCALE = dict(
     pq=dict(g=1_000_000, q_sweep=(16, 256), dense_g=250_000),
     k2_checks=((16, "hilo"), (16, "hi"), (256, "hi")),
     wide=dict(g=10_000_000, q=256, precision="hi"),
     sync_rows=(250_000,), async_rows=250_000,
     merge=dict(g=200_000, dups=2000, threshold=0.95),
-    budget=dict(rows=250_000, queries=256))
+    budget=dict(rows=250_000, queries=256),
+    fused=LOOKUP_CELL)
 GALLERY_SCALE_FULL = dict(
     pq=dict(g=10_000_000, q_sweep=(16, 64, 128, 256), dense_g=2_000_000),
     k2_checks=((16, "hilo"), (16, "hi"), (256, "hi")),
     wide=None,
     sync_rows=(1_000_000, 2_000_000), async_rows=1_000_000,
     merge=dict(g=1_000_000, dups=2000, threshold=0.95),
-    budget=dict(rows=1_000_000, queries=256))
+    budget=dict(rows=1_000_000, queries=256),
+    fused=LOOKUP_CELL)
 # phase 24: the tools' defaults: (a) exp_microbatch (requests, threads,
 # image side, the collector's wait, the models, the detector's input);
 # (b) exp_convergence (steps, eval interval, batches, the
@@ -1140,6 +1161,56 @@ def compare_k2(torch, pq_adc, lut, codes, precision):
     return err, rel
 
 
+def k2_count(pq_adc):
+    """K2's launches: the scoring kernel's and the fused top-k's."""
+    return pq_adc.launches + pq_adc.topk_launches
+
+
+def k2_reset(pq_adc):
+    pq_adc.launches = pq_adc.topk_launches = 0
+
+
+def k2_capture():
+    """The PQ searches' K2 calls (``gallery.pq.adc_candidates``, K2 with
+    the top-k fused in): each call's (lut, codes, valid, k, precision),
+    cloned before the call."""
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import pq
+
+    return captured_calls(pq, "adc_candidates")
+
+
+def compare_topk(torch, pq_adc, what, lut, codes, valid, k, precision,
+                 row_offset=0, block=64):
+    """The fused top-k (one call over every query) against the plain chain
+    (``pq_adc.topk_plain``: the plain scores, independent of K2, invalid
+    rows to -inf, a stable sort) and against the chain it replaces (K2's
+    scores, the mask, the sort), ``block`` queries at a time, on the same
+    card tensors: rows equal, scores equal as bits, NaN where NaN. No
+    launch is counted. Returns the number of (query, place) pairs
+    compared."""
+    n0 = (pq_adc.launches, pq_adc.topk_launches)
+    got_s, got_i = pq_adc.pq_adc_topk(lut, codes, valid, k, precision,
+                                      row_offset)
+    for name, scores in (("the plain chain", pq_adc.adc_scores_plain),
+                         ("K2 + mask + sort", pq_adc.pq_adc_scores)):
+        for q0 in range(0, lut.shape[0], block):
+            want_s, want_i = pq_adc.topk_plain(
+                lut[q0:q0 + block].contiguous(), codes, valid, k, precision,
+                row_offset, scores=scores)
+            s, i = got_s[q0:q0 + block], got_i[q0:q0 + block]
+            nan = torch.isnan(want_s)
+            if not (s.shape == want_s.shape and torch.equal(i, want_i)
+                    and torch.equal(torch.isnan(s), nan) and torch.equal(
+                        s[~nan].view(torch.int32),
+                        want_s[~nan].view(torch.int32))):
+                fail(f"{what}: the fused top-k ({precision}, k={k}) differs "
+                     f"from {name} in queries {q0}.."
+                     f"{q0 + len(want_i) - 1}")
+            del want_s, want_i
+    pq_adc.launches, pq_adc.topk_launches = n0
+    return got_i.numel()
+
+
 def k2_lut(torch, rng, q, m, k):
     """A normal (Q, M, K) f32 LUT on the card; from Q=3 on, query 1 is
     NaN at one subspace and query 2 has infinite entries at another."""
@@ -1199,10 +1270,14 @@ def phase_k2_vs_plain(torch, pq_adc, rep):
     return worst[0]
 
 
-def k2_bound(q, m, k, g, precision):
+def k2_bound(q, m, k, g, precision, top_k=None):
     """Least time for K2's work: code bytes, LUT bytes (2 a entry in "hi")
-    and score bytes once at the HBM rate, or Q*G*M adds at the f32 rate."""
-    nbytes = g * m + q * m * k * (2 if precision == "hi" else 4) + q * g * 4
+    and score bytes once at the HBM rate, or Q*G*M adds at the f32 rate.
+    With ``top_k``, the fused top-k's: no scores stored, but the rows'
+    valid flags read and the (Q, top_k) answers (f32 and int64)
+    written."""
+    nbytes = g * m + q * m * k * (2 if precision == "hi" else 4) + (
+        q * g * 4 if top_k is None else g + q * top_k * 12)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = q * g * m / FP32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
@@ -1321,14 +1396,14 @@ def phase_gallery_path(torch, rep, main_emb):
 
     # the path: search_batch, with K2's count reset just before
     timer.ms.clear()
-    pq_adc.launches = 0
+    k2_reset(pq_adc)
     search_ms, all_ms, hits = median_ms(
         torch, lambda: ag.search_batch(main_q, k=k))
     stage_ms = {s: timer.ms[s] / len(all_ms) for s in stages.GALLERY_STAGES
                 if s in timer.ms}
     stages.set_stage_hook(None)
     probe_hits = ag.search_batch(views, k=k)
-    launches = pq_adc.launches
+    launches = k2_count(pq_adc)
     if launches == 0:
         fail("gallery path launched K2 no time")
     for i, h in enumerate(hits):
@@ -1345,7 +1420,8 @@ def phase_gallery_path(torch, rep, main_emb):
             + "; stages (mean host ms a call, synchronized): " + ", ".join(
                 f"{s} {v:.3f}" for s, v in stage_ms.items())
             + f"; K2 launches {launches} over 6 calls (5 of the embeddings, "
-            f"1 of {len(probe)} noisy views); every embedding "
+            f"1 of {len(probe)} noisy views; the shortlist of "
+            f"{ag.pq_rerank} fused into K2); every embedding "
             f"finds itself first (min cosine "
             f"{min(h[0].score for h in hits):.7f}); recall@1 of "
             f"{len(probe)} noisy views {recall:.4f}")
@@ -1363,6 +1439,9 @@ def phase_gallery_path(torch, rep, main_emb):
     lut = ag._pq.codec.lut(q_norm)
     codes = ag._pq._codes
     errs, times = [], {}
+    for precision, kk in (("hilo", k), ("hi", ag.pq_rerank)):
+        compare_topk(torch, pq_adc, "gallery path", lut, codes,
+                     ag._pq._shards.valid[0], kk, precision)
     for precision in pq_adc.PRECISIONS:
         errs.append(compare_k2(torch, pq_adc, lut, codes, precision)[0])
         times[precision] = k2_times(torch, pq_adc, lut, codes, precision)
@@ -1374,7 +1453,9 @@ def phase_gallery_path(torch, rep, main_emb):
                 f"{t['library_ms']:.4f} ms (its max diff from the plain "
                 f"scores {t['lib_rel']:.3g} of max |score|), bound "
                 f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B "
-                f"at 3.35 TB/s), max abs err vs plain {errs[-1]:.6g}")
+                f"at 3.35 TB/s), max abs err vs plain {errs[-1]:.6g}; the "
+                f"fused top-k bit-equal to the plain chain and to K2 + mask "
+                f"+ sort at k={k} hilo and k={ag.pq_rerank} hi")
     # the tier is scored whole: half its rows are empty (zero codes)
     filled = codes[:n]
     for precision in pq_adc.PRECISIONS:
@@ -2507,14 +2588,13 @@ def phase_engine_pq(torch, rep):
     runs = []                     # (results, ms, K2 launches, tier, record)
     for device in (DEV, "cpu"):
         with tempfile.TemporaryDirectory() as tmp, port_log(
-                "engine on the PQ tier"), captured_calls(
-                pq, "pq_adc_scores") as calls:
-            pq_adc.launches = 0
+                "engine on the PQ tier"), k2_capture() as calls:
+            k2_reset(pq_adc)
             t = time.perf_counter()
             eng, res = run_engine(tmp, IdentityApp(), identity_loader,
                                   pq_visits, cfg["batches"], device, **vdb)
             runs.append((res, (time.perf_counter() - t) * 1e3,
-                         pq_adc.launches, eng.vector_db.tier,
+                         k2_count(pq_adc), eng.vector_db.tier,
                          engine_record(eng)))
         if not runs[1:]:
             k2_calls = calls             # the searches of the card's run
@@ -2522,13 +2602,16 @@ def phase_engine_pq(torch, rep):
     if tier != "pq" or k2 <= 0 or not k2_calls:
         fail(f"engine on the PQ tier: tier {tier}, K2 launches {k2}, "
              f"{len(k2_calls)} searches captured")
-    # K2 against its plain version on each search's LUT and codes: the
-    # decisions come from the exact rerank of K2's shortlist, so they
-    # alone would not show a wrong score
+    # K2 against its plain version on each search's LUT and codes, and
+    # the fused top-k against both chains: the decisions come from
+    # the exact rerank of K2's shortlist, so they alone would not show a
+    # wrong score
     err, rel = 0.0, 0.0
-    for lut, codes, precision in k2_calls:
+    for lut, codes, valid, k, precision in k2_calls:
         e, r = compare_k2(torch, pq_adc, lut, codes, precision)
         err, rel = max(err, e), max(rel, r)
+        compare_topk(torch, pq_adc, "engine on the PQ tier", lut, codes,
+                     valid, k, precision)
     diff = record_diff(card, cpu[4], TOL_RECORD)
     if diff:
         fail(f"engine on the PQ tier: card and CPU decide differently: "
@@ -2545,9 +2628,11 @@ def phase_engine_pq(torch, rep):
             f"{len(card['json'])} results files) equal to the CPU "
             f"run's (floats within {TOL_RECORD}); K2 vs plain on the "
             f"searches' inputs (" + ", ".join(
-                f"LUT {tuple(lut.shape)} {prec}, codes {tuple(codes.shape)}"
-                for lut, codes, prec in k2_calls) + f"): max abs err "
-            f"{err:.6g} = {rel:.3g} of max |score| (tolerance {TOL_K2})")
+                f"LUT {tuple(c[0].shape)} {c[4]}, codes {tuple(c[1].shape)}"
+                f", k {c[3]}" for c in k2_calls) + f"): max abs err "
+            f"{err:.6g} = {rel:.3g} of max |score| (tolerance {TOL_K2}); "
+            f"the fused top-k bit-equal to the plain chain and to K2 + "
+            f"mask + sort on them")
     return dict(k2=k2, ms_visit=ms / cfg["visits"], err=err)
 
 
@@ -4285,9 +4370,8 @@ def phase_web(torch, rep, app, direct):
                 config=engine_config(tmp, **vdb), app=IdentityApp(),
                 image_loader=identity_loader,
                 results_dir=os.path.join(tmp, "results"), device=DEV)
-            with web_server(eng, None, tmp) as web, captured_calls(
-                    pq, "pq_adc_scores") as k2_calls:
-                pq_adc.launches = 0
+            with web_server(eng, None, tmp) as web, k2_capture() as k2_calls:
+                k2_reset(pq_adc)
                 step = -(-cfg["visits"] // cfg["batches"])
                 totals = {}
                 for c0 in range(0, cfg["visits"], step):
@@ -4299,7 +4383,7 @@ def phase_web(torch, rep, app, direct):
                              f"{status} {got}")
                     for k, v in got["results"].items():
                         totals[k] = totals.get(k, 0) + v
-                k2 = pq_adc.launches
+                k2 = k2_count(pq_adc)
             card_rec = engine_record(eng)
             tier = eng.vector_db.tier
     finally:
@@ -4313,9 +4397,11 @@ def phase_web(torch, rep, app, direct):
         fail(f"web API, PQ tier: the card over HTTP and the CPU decide "
              f"differently: {diff}")
     err2, rel = 0.0, 0.0
-    for lut, codes, precision in k2_calls:
+    for lut, codes, valid, k, precision in k2_calls:
         e, r = compare_k2(torch, pq_adc, lut, codes, precision)
         err2, rel = max(err2, e), max(rel, r)
+        compare_topk(torch, pq_adc, "web API, PQ tier", lut, codes, valid, k,
+                     precision)
     err1, what = k1_on_path(torch, wa, k1_calls)
     width, n_batches, worst = seen["microbatch"]
     rep.say(f"web API: make_server on 127.0.0.1 over SmartFaceEngine on "
@@ -4341,7 +4427,9 @@ def phase_web(torch, rep, app, direct):
             f"assigned {totals['recognized']}; K2 launches {k2}; the "
             f"decisions equal to the CPU run's; K2 vs plain on every "
             f"search's inputs ({len(k2_calls)} searches): max abs err "
-            f"{err2:.6g} = {rel:.3g} of max |score| (tolerance {TOL_K2})")
+            f"{err2:.6g} = {rel:.3g} of max |score| (tolerance {TOL_K2}); "
+            f"the fused top-k bit-equal to the plain chain and to K2 + "
+            f"mask + sort on them")
     return dict(k1=k1_visits + k1_pairs, k2=k2, err1=err1, err2=err2,
                 ms_visit=visit_ms, ms_pair=pair_ms, width=width)
 
@@ -5398,10 +5486,10 @@ def phase_pq_sharded(torch, rep, slots, label, flat, queries, cpu_rows,
         fail("sharded PQ: the meshed gallery's codes differ from phase 7's")
     out, launches, errs = {}, 0, []
     for name, kw in (("hilo", dict(k=k)), ("hi", dict(k=k, rerank=32))):
-        pq_adc.launches = 0
+        k2_reset(pq_adc)
         s, i = meshed.search(queries, **kw)
         sync_all(torch)
-        got = pq_adc.launches
+        got = k2_count(pq_adc)
         if got != len(slots):
             fail(f"sharded PQ ({name}): K2 launched {got} times, not once "
                  f"for each of the {len(slots)} shards")
@@ -5414,11 +5502,16 @@ def phase_pq_sharded(torch, rep, slots, label, flat, queries, cpu_rows,
         shard_ms = median_ms(torch, lambda: meshed.search(queries, **kw))[0]
         flat_ms = median_ms(torch, lambda: flat.search(queries, **kw))[0]
         out[name] = (shard_ms, flat_ms)
-    # K2 against its plain version on the first shard's inputs
+    # K2 against its plain version on the first shard's inputs, the fused
+    # top-k against both chains on the last shard's (its rows offset)
     lut = meshed.codec.lut(queries)
     shard0 = meshed._shards.rows[0]
     for precision in pq_adc.PRECISIONS:
         errs.append(compare_k2(torch, pq_adc, lut, shard0, precision)[0])
+        last = len(slots) - 1
+        rows, valid = meshed._shards.rows[last], meshed._shards.valid[last]
+        compare_topk(torch, pq_adc, "sharded PQ", lut.to(rows.device), rows,
+                     valid, 32, precision, last * meshed._shards.per)
     rep.say(f"20b sharded PQ ({label}): phase 7's codec and {n} rows in a "
             f"{meshed.capacity}-row PQGallery(mesh=) over {len(slots)} "
             f"shards (filled in {fill_s:.2f} s, codes equal to phase 7's); "
@@ -5428,17 +5521,18 @@ def phase_pq_sharded(torch, rep, slots, label, flat, queries, cpu_rows,
             f"sharded / unsharded: " + ", ".join(
                 f"{p} {a:.2f} / {b:.2f}" for p, (a, b) in out.items())
             + f"; K2 vs plain on shard 0 ({shard0.shape[0]} rows) max abs "
-            f"err {max(errs):.3g}")
+            f"err {max(errs):.3g}; the fused top-k bit-equal to the plain "
+            f"chain and to K2 + mask + sort on the last shard")
     del meshed
 
     ag = AutoGallery(vector_size=flat.codec.dim, tier="pq", mesh=mesh,
                      min_train_rows=PAR["auto_min_rows"], device=DEV)
-    pq_adc.launches = 0
+    k2_reset(pq_adc)
     ag.add_batch(cpu_ids, cpu_rows)
     if ag.tier != "pq" or len(ag._pq._shards.rows) != len(slots):
         fail("AutoGallery(mesh=): the PQ tier is not sharded over the mesh")
     want = ag.search_batch(queries, k=k)
-    launches += pq_adc.launches
+    launches += k2_count(pq_adc)
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as d:
@@ -5450,7 +5544,7 @@ def phase_pq_sharded(torch, rep, slots, label, flat, queries, cpu_rows,
         plain.snapshot(path2)
         back = AutoGallery.restore(path2, vector_size=flat.codec.dim,
                                    tier="pq", mesh=mesh, device=DEV)
-    pq_adc.launches = 0
+    k2_reset(pq_adc)
     for g, what in ((plain, "restored unmeshed"), (back, "restored onto "
                                                    "the mesh")):
         hits = g.search_batch(queries, k=k)
@@ -5458,7 +5552,7 @@ def phase_pq_sharded(torch, rep, slots, label, flat, queries, cpu_rows,
                 [(h.id, h.score) for h in x] for x in want]:
             fail(f"AutoGallery(mesh=): the snapshot {what} searches "
                  f"differently")
-    launches += pq_adc.launches
+    launches += k2_count(pq_adc)
     rep.say(f"20b AutoGallery(tier='pq', mesh=) over {len(cpu_ids)} rows: "
             f"migrated to a PQ tier of {len(slots)} shards; its snapshot "
             f"restored unmeshed and that one's back onto the mesh give "
@@ -6187,7 +6281,8 @@ def phase_signoff(torch, rep):
 
 
 
-def k2_bit_equal(torch, pq_adc, lut, codes, precision, block=64):
+def k2_bit_equal(torch, pq_adc, lut, codes, precision, block=64,
+                 what="23a"):
     """K2 on the whole (Q, G) against its plain version computed ``block``
     queries at a time (the plain scan holds three (block, G) tensors, not
     three (Q, G) ones): every score bit-equal, NaN where NaN. The
@@ -6201,14 +6296,14 @@ def k2_bit_equal(torch, pq_adc, lut, codes, precision, block=64):
         part = got[q0:q0 + block]
         nan = torch.isnan(part)
         if not torch.equal(nan, torch.isnan(want)):
-            fail(f"23a K2 ({precision}): NaN positions differ from the "
+            fail(f"{what} K2 ({precision}): NaN positions differ from the "
                  f"plain version in queries {q0}..{q0 + len(want) - 1}")
         same = (part.view(torch.int32) == want.view(torch.int32)) | nan
         if not bool(same.all()):
             fin = torch.isfinite(want) & torch.isfinite(part)
             d = float((part[fin] - want[fin]).abs().max()) if bool(
                 fin.any()) else float("inf")
-            fail(f"23a K2 ({precision}) differs from its plain version at "
+            fail(f"{what} K2 ({precision}) differs from its plain version at "
                  f"{int((~same).sum())} of {same.numel()} scores "
                  f"(queries {q0}..{q0 + len(want) - 1}; max abs difference "
                  f"of the finite ones {d:.6g})")
@@ -6241,11 +6336,11 @@ def scale_search(torch, rep):
             del lut
 
     torch.cuda.empty_cache()
-    pq_adc.launches = 0
+    k2_reset(pq_adc)
     res = xs.run(g=cfg["g"], q_sweep=cfg["q_sweep"],
                  dense_g=cfg["dense_g"], device=DEV, emit=lines.append,
                  inspect=inspect)
-    launches = pq_adc.launches
+    launches = k2_count(pq_adc)
     for line in lines:
         rep.say("23a " + json.dumps(line))
     if launches == 0:
@@ -6320,11 +6415,11 @@ def scale_wide(torch, rep):
     sync_all(torch)
     drawn = time.perf_counter() - t
     torch.cuda.empty_cache()
-    n0 = pq_adc.launches
+    n0 = k2_count(pq_adc)
     t = time.perf_counter()
     _, ids = gal.search(qs, k=5, precision=cfg["precision"])
     search_s = time.perf_counter() - t
-    launches = pq_adc.launches - n0
+    launches = k2_count(pq_adc) - n0
     if launches == 0:
         fail("23a the search over the drawn codes launched K2 no time")
     if not (ids >= 0).all():
@@ -6333,13 +6428,18 @@ def scale_wide(torch, rep):
     t = time.perf_counter()
     lut = codec.lut(qs)
     err = k2_bit_equal(torch, pq_adc, lut, gal._codes, cfg["precision"])
+    compare_topk(torch, pq_adc, "23a the search over the drawn codes", lut,
+                 gal._codes, valid, 5, cfg["precision"], block=32)
     n = cfg["q"] * cfg["g"]
     rep.say(f"23a {cfg['g']} codes drawn on the card ({drawn:.1f} s with "
             f"the codec), one search at Q={cfg['q']} {cfg['precision']} "
             f"({search_s:.2f} s, {launches} K2 launch, every id >= 0); K2 "
             f"vs plain on them: {n} scores "
             f"({'past' if n > 2 ** 31 else 'below'} 2^31), bit-equal, NaN "
-            f"positions equal ({time.perf_counter() - t:.1f} s)")
+            f"positions equal; the fused top-k (one call) bit-equal to the "
+            f"plain chain and to K2 + mask + sort (32 queries a call) "
+            f"({time.perf_counter() - t:.1f}"
+            f" s)")
     del gal, codes, valid, lut
     torch.cuda.empty_cache()
     return dict(launches=launches, err=[err])
@@ -6352,7 +6452,7 @@ def scale_migration(torch, rep):
     from scrfd_arcface_facerecognition_tpu_torch.tools import (
         exp_migration as xm)
 
-    pq_adc.launches = 0
+    k2_reset(pq_adc)
     sync = []
     for rows in GALLERY_SCALE["sync_rows"]:
         sync.append(xm.run_scale(rows, device=DEV))
@@ -6372,7 +6472,7 @@ def scale_migration(torch, rep):
     if asy["probe_top1_self_min"] not in (None, "16/16"):
         fail(f"23b a probe during the migration found top-1 self "
              f"{asy['probe_top1_self_min']}")
-    launches = pq_adc.launches
+    launches = k2_count(pq_adc)
     if launches == 0:
         fail("23b the migrated tiers launched K2 no time")
     rep.say(f"23b K2 launches over both crossings: {launches}")
@@ -6424,19 +6524,111 @@ def scale_budget(torch, rep):
     return rows
 
 
+def scale_fused(torch, rep):
+    """23e: the lookup cell's shape (``GALLERY_SCALE["fused"]``): codes of
+    prototypes with a share of each row's sub-codes drawn anew (so exact
+    ties are common), N(0, 1/D) centroids, queries near random rows. K2
+    against its plain version there, bit for bit; the fused search
+    (``PQGallery.search``, K2 with the top-k in it) against the plain
+    chain and the unfused one (K2, mask, stable sort) bit for bit, and the
+    fused top-k at k of the cell and 32 in both precisions against both;
+    then device ms at the cell's (Q, k, precision): the fused top-k (K2
+    and the merge) beside its own bound, K2 alone, K2 + mask + sort. None
+    of these launches is counted."""
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import pq_adc
+    from scrfd_arcface_facerecognition_tpu_torch.gallery.pq import (
+        PQCodec, PQGallery)
+
+    cfg = GALLERY_SCALE["fused"]
+    g, m, kc, dim = cfg["g"], 64, 256, 512
+    n0 = (pq_adc.launches, pq_adc.topk_launches)
+    gen = torch.Generator(device=DEV).manual_seed(25)
+    cent = torch.randn((m, kc, dim // m), generator=gen, device=DEV) \
+        / dim ** 0.5
+    gal = PQGallery(PQCodec(cent), capacity=g, device=DEV)
+    codes, valid = gal._shards.rows[0], gal._shards.valid[0]
+    proto = torch.randint(0, kc, (cfg["identities"], m), generator=gen,
+                          dtype=torch.uint8, device=DEV)
+    for r0 in range(0, g, 1 << 20):
+        n = min(1 << 20, g - r0)
+        ident = torch.randint(0, cfg["identities"], (n,), generator=gen,
+                              device=DEV)
+        fresh = torch.randint(0, kc, (n, m), generator=gen,
+                              dtype=torch.uint8, device=DEV)
+        change = torch.rand((n, m), generator=gen, device=DEV) \
+            < cfg["changed"]
+        codes[r0:r0 + n] = torch.where(change, fresh, proto[ident])
+    valid.fill_(True)
+    gal._ids[:] = np.arange(g)
+    gal._free = []
+    near = gal.codec.decode(codes[torch.randint(
+        0, g, (cfg["q"],), generator=gen, device=DEV)])
+    qs = torch.nn.functional.normalize(near + cfg["noise"] * torch.randn(
+        near.shape, generator=gen, device=DEV) / dim ** 0.5, dim=1)
+    qs = qs.cpu().numpy()
+    lut = gal.codec.lut(qs)
+    k, precision = cfg["k"], cfg["precision"]
+    k2_bit_equal(torch, pq_adc, lut, codes, precision, what="23e")
+    s, i = gal.search(qs, k=k, precision=precision)
+    for name, scores in (("the plain chain", pq_adc.adc_scores_plain),
+                         ("the unfused one", pq_adc.pq_adc_scores)):
+        want_s, want_i = pq_adc.topk_plain(lut, codes, valid, k, precision,
+                                           scores=scores)
+        if not (np.array_equal(i, want_i.cpu().numpy()) and np.array_equal(
+                s.view(np.int32), want_s.cpu().numpy().view(np.int32))):
+            fail(f"23e the fused search differs from {name} at Q="
+                 f"{cfg['q']}, k={k}, {precision}")
+        del want_s, want_i
+    places = 0
+    for p in pq_adc.PRECISIONS:
+        for kk in sorted({k, pq_adc.KMAX}):
+            places += compare_topk(torch, pq_adc, "23e", lut, codes, valid,
+                                   kk, p)
+    fused_ms = time_ms(torch, lambda: pq_adc.pq_adc_topk(
+        lut, codes, valid, k, precision))
+    k2_ms = time_ms(torch, lambda: pq_adc.pq_adc_scores(lut, codes,
+                                                        precision))
+    chain_ms = time_ms(torch, lambda: pq_adc.topk_plain(
+        lut, codes, valid, k, precision, scores=pq_adc.pq_adc_scores),
+        iters=3)
+    plain_ms = time_ms(torch, lambda: pq_adc.topk_plain(
+        lut, codes, valid, k, precision), iters=1)
+    bound_ms, bound_by, _ = k2_bound(cfg["q"], m, kc, g, precision, top_k=k)
+    k2_bound_ms, k2_bound_by, _ = k2_bound(cfg["q"], m, kc, g, precision)
+    pq_adc.launches, pq_adc.topk_launches = n0
+    rep.say(f"23e the lookup cell's shape, {g} codes of "
+            f"{cfg['identities']} identities ({cfg['changed']:.5f} of a "
+            f"row's sub-codes drawn anew), Q={cfg['q']}: K2 bit-equal to "
+            f"its plain version ({precision}); the fused search (k={k}, "
+            f"{precision}) bit-equal to the plain chain and to the unfused "
+            f"one, the fused top-k bit-equal to both at k "
+            f"{sorted({k, pq_adc.KMAX})} in both precisions ({places} "
+            f"places); device ms at k={k} {precision}: the fused top-k "
+            f"{fused_ms:.4f} (K2 with the selection, and the merge; its "
+            f"bound {bound_ms:.4f} by {bound_by}), K2 alone {k2_ms:.4f} "
+            f"(its bound {k2_bound_ms:.4f} by {k2_bound_by}), K2 + mask + "
+            f"sort {chain_ms:.4f}, the plain chain {plain_ms:.4f}")
+    del gal, codes, valid, lut
+    torch.cuda.empty_cache()
+    return dict(ms=fused_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=chain_ms,
+                shape=dict(q=cfg["q"], g=g, k=k, precision=precision))
+
+
 def phase_gallery_scale(torch, rep):
     """23: the gallery at deployment scale through the port's tools."""
     t0 = time.perf_counter()
     out, secs = {}, {}
     for part, run in (("a", scale_search), ("b", scale_migration),
-                      ("c", scale_merge), ("d", scale_budget)):
+                      ("c", scale_merge), ("d", scale_budget),
+                      ("e", scale_fused)):
         t = time.perf_counter()
         out[part] = run(torch, rep)
         secs[part] = time.perf_counter() - t
     rep.say(f"phase 23 took {time.perf_counter() - t0:.1f} s: "
             + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()))
     return dict(launches=out["a"]["launches"] + out["b"]["launches"],
-                err=out["a"]["err"], secs=secs)
+                err=out["a"]["err"], secs=secs, topk=out["e"])
 
 # ---------------------------------------------------------------------
 # phase 24: the serving host's budget and the trainers' proof, through the
@@ -7231,13 +7423,18 @@ def kernel_rows(torch, wa, pq_adc, r):
             "launches": k1_launches, "max_abs_err": k1_err,
             **times(r[4]["t"])})
     if 7 in r:
+        # phase 23 (23e) times the fused top-k at the lookup cell's shape:
+        # its time, the plain chain's, its own bound and K2 + mask + sort
+        # (``library_ms``: the sort is torch's)
+        topk = got(23, lambda v: {
+            "topk": dict(times(v["topk"]), shape=v["topk"]["shape"])}, {})
         rows.append({
             "name": pq_adc.NAME, "route": "cuda",
             "source": "scrfd_arcface_facerecognition_tpu_torch/csrc/"
                       "pq_adc.cu",
             "replaces": "scrfd_arcface_facerecognition_tpu/gallery/pq.py:302",
             "launches": k2_launches, "max_abs_err": k2_err,
-            **times(r[7]["times"])})
+            **times(r[7]["times"]), **topk})
     if 9 in r:
         k3 = r[9]
         rows.append({

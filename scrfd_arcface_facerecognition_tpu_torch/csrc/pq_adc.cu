@@ -77,9 +77,34 @@
 // 132 SMs) is 1.56 ms at the 1.98 GHz boost clock, and the code and score
 // traffic (3.2 GB a call, 0.96 ms at 3.35 TB/s) is close behind what the
 // lookups leave.
+//
+// The fused top-k (TOPK, pq_adc_topk_launch; gallery/pq_adc.py
+// pq_adc_topk). A search wants each query's k best rows, not its G
+// scores: stored, the scores were masked and sorted by a stable radix
+// sort, 16 bytes and several passes a score, more than twice K2's time at
+// Q=64 over 10M rows. A score costs some 112 instructions of lookups and
+// adds; testing it against a running k-th best costs a few more, and it is
+// still in a register. So the final slab of each chunk does not store its
+// scores: each warp keeps, for each query of the chunk, its k best (score,
+// row) so far, entry j on lane j (k <= 32), in one total order: a NaN
+// first, then the higher score, then the lower row, as the stable sort
+// ranks them, so no order of arrival can change the answer. A row whose
+// valid flag is 0 scores -inf, as the search's mask made it. Per query and
+// step, one shuffle brings the k-th entry to every lane, three compares
+// and a ballot find the lanes that may enter, and those few are inserted
+// one at a time (a ballot for the place, two shuffles to move the tail).
+// A warp's lists leave registers only at the end of its chunk, into a
+// (Q, lists, k) candidate tensor; pq_topk_merge (no scoring, so not named
+// as K2), one block a query, reduces them to the k best the same way. The
+// first slab's partial sums go to one chunk's (W, G) scratch, reused
+// chunk after chunk, since a thread reads back only what it stored. The
+// scores are summed exactly as above, so the winners are bit-equal to K2
+// + mask + stable sort. Registers at "hilo" W=4 with 16-byte code loads:
+// 88, against 75 without the selection (nvcc -Xptxas -v), no spills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -219,28 +244,109 @@ __device__ __forceinline__ void stage(unsigned char* table,
   }
 }
 
+// The fused top-k's selection (TOPK). Each warp keeps, for each query of
+// the chunk, a list of its k best (score, row) so far, entry j on lane j,
+// best first, in one total order: a NaN first, then the higher score,
+// then the lower row (torch.sort's stable descending order, as lax.top_k
+// ranks). An empty entry is (-inf, kNoRow), after every row.
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxTopK = 32;              // one entry a lane
+constexpr int kNoRow = 0x7fffffff;
+
+__device__ __forceinline__ bool ranks_before(float a, int ia, float b,
+                                             int ib) {
+  const bool na = isnan(a), nb = isnan(b);
+  if (na != nb) return na;
+  if (!na && a != b) return a > b;
+  return ia < ib;
+}
+
+// Can (s, i) enter a list whose k-th entry is (ts, ti)? Exact unless s is
+// a NaN, which always may (the insertion then decides by row). The test
+// every score takes: three compares.
+__device__ __forceinline__ bool may_enter(float s, int i, float ts, int ti) {
+  return s > ts || (s == ts && i < ti) || isnan(s);
+}
+
+// Inserts (s, i), the same on every lane, into the warp's list (ls, li)
+// of k entries: the entries ahead of it stay, the rest move down a lane,
+// the last falls off. Nothing moves when all k rank ahead of it.
+__device__ __forceinline__ void list_insert(float& ls, int& li, float s,
+                                            int i, int k, int lane) {
+  const int pos = __popc(__ballot_sync(
+      ~0u, lane < k && ranks_before(ls, li, s, i)));
+  const float us = __shfl_up_sync(~0u, ls, 1);
+  const int ui = __shfl_up_sync(~0u, li, 1);
+  if (pos < k && lane == pos) {
+    ls = s; li = i;
+  } else if (lane > pos && lane < k) {
+    ls = us; li = ui;
+  }
+}
+
+// Offers each lane's (s, i) (where ``ok``) to the warp's list, whose k-th
+// entry was (ts, ti) or worse: the lanes that may enter, one at a time.
+__device__ __forceinline__ void list_offer(float& ls, int& li, float s,
+                                           int i, bool ok, float ts, int ti,
+                                           int k, int lane) {
+  unsigned want = __ballot_sync(~0u, ok && may_enter(s, i, ts, ti));
+  while (want) {
+    const int src = __ffs(want) - 1;
+    want &= want - 1;
+    list_insert(ls, li, __shfl_sync(~0u, s, src), __shfl_sync(~0u, i, src),
+                k, lane);
+  }
+}
+
+// What the fused top-k reads and writes beside the scores.
+struct Select {
+  const uint8_t* valid;   // (G,) 0 / 1: a row whose flag is 0 scores -inf
+  float* cand_s;          // (Q, lists, k): each warp's list, by query
+  int* cand_i;            //   its rows (of the codes, from 0)
+  int k;
+  int lists;              // the grid's warps
+  int part_rows;          // rows of the (part_rows, G) partial sums
+};
+
+// What a fused top-k's launch needs from its caller: the rows of its
+// partial sums' scratch and the lists (a warp each) a query gets.
+struct Plan {
+  int part_rows = 0, lists = 0;
+};
+
 // Chunks of W queries; each chunk's table in slabs of ms subspaces (one
 // slab when it fits). A slab after the first starts from the scores the
 // one before it stored, so every score is still summed in m order.
-template <bool HI, int W, bool VEC>
+// TOPK: ``out`` is one chunk's (W, G) partial sums, reused chunk after
+// chunk (a thread reads back only what it stored itself); the final slab
+// offers its scores to the warps' lists instead of storing them, and each
+// warp writes its lists when the chunk is done.
+template <bool HI, int W, bool VEC, bool TOPK>
 __global__ void __launch_bounds__(kThreads, 1)
 pq_adc_kernel(const float* __restrict__ lut, const uint8_t* __restrict__ codes,
               float* __restrict__ out, int Q, int M, int K, long long G,
-              int ms, bool vec_lut) {
+              int ms, bool vec_lut, Select sel) {
   using Grp = Group<HI, W>;
   constexpr int GB = Grp::kBytes;
   extern __shared__ __align__(16) unsigned char table[];
   const int mk = M * K;
   const long long tile = (long long)kThreads * kRows;
+  const int lane = threadIdx.x & 31;
 
   for (int q0 = 0; q0 < Q; q0 += W) {
     const int nq = min(W, Q - q0);
+    const int qo = TOPK ? 0 : q0;   // the first of the chunk's rows of out
     for (int mlo = 0; mlo < M; mlo += ms) {
       const int mhi = min(M, mlo + ms);
+      const bool select = TOPK && mhi == M;
       __syncthreads();  // every lookup of the previous slab is done
       stage<HI, W>(table, lut + (size_t)q0 * mk + mlo * K, nq, mk,
                    (mhi - mlo) * K, vec_lut);
       __syncthreads();
+      float ls[W];
+      int li[W];
+#pragma unroll
+      for (int e = 0; e < W; ++e) { ls[e] = -INFINITY; li[e] = kNoRow; }
 
       for (long long t0 = (long long)blockIdx.x * tile; t0 < G;
            t0 += (long long)gridDim.x * tile) {
@@ -256,8 +362,12 @@ pq_adc_kernel(const float* __restrict__ lut, const uint8_t* __restrict__ codes,
 #pragma unroll
           for (int q = 0; q < W; ++q)
             acc[r][q] = mlo > 0 && ok[r] && q < nq
-                ? out[(size_t)(q0 + q) * G + g[r]] : 0.f;
+                ? out[(size_t)(qo + q) * G + g[r]] : 0.f;
         }
+        bool live[kRows];  // the mask: a row whose flag is 0 scores -inf
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          live[r] = select && ok[r] && __ldg(sel.valid + g[r]) != 0;
         uint32_t cur[kRows][kStep / 4], nxt[kRows][kStep / 4];
         load_codes<VEC>(cur, row, ok, mlo, mhi);
         for (int m0 = mlo; m0 < mhi; m0 += kStep) {
@@ -285,13 +395,88 @@ pq_adc_kernel(const float* __restrict__ lut, const uint8_t* __restrict__ codes,
 #pragma unroll
             for (int i = 0; i < kStep / 4; ++i) cur[r][i] = nxt[r][i];
         }
+        if (select) {
+          // a stale k-th entry only lets more lanes try: the insertion
+          // holds the list to the order
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
+          for (int e = 0; e < W; ++e) {
+            if (e < nq) {
+              const float ts = __shfl_sync(~0u, ls[e], sel.k - 1);
+              const int ti = __shfl_sync(~0u, li[e], sel.k - 1);
 #pragma unroll
-          for (int q = 0; q < W; ++q)
-            if (ok[r] && q < nq) out[(size_t)(q0 + q) * G + g[r]] = acc[r][q];
+              for (int r = 0; r < kRows; ++r)
+                list_offer(ls[e], li[e], live[r] ? acc[r][e] : -INFINITY,
+                           (int)g[r], ok[r], ts, ti, sel.k, lane);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int r = 0; r < kRows; ++r)
+#pragma unroll
+            for (int q = 0; q < W; ++q)
+              if (ok[r] && q < nq) out[(size_t)(qo + q) * G + g[r]] = acc[r][q];
+        }
+      }
+      if (select) {
+        const size_t p = (size_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          if (e < nq && lane < sel.k) {
+            const size_t o =
+                ((size_t)(q0 + e) * sel.lists + p) * sel.k + lane;
+            sel.cand_s[o] = ls[e];
+            sel.cand_i[o] = li[e];
+          }
+        }
       }
     }
+  }
+}
+
+// The fused top-k's second pass (no scoring, so not named as K2): one
+// block a query reduces the (lists, k) candidates of the warps' lists to
+// the query's k best, in the same order, with rows offset to global ones.
+constexpr int kMergeThreads = 256;
+
+__global__ void __launch_bounds__(kMergeThreads)
+pq_topk_merge(const float* __restrict__ cand_s,
+              const int* __restrict__ cand_i, int lists, int k, int kk,
+              long long row_offset, float* __restrict__ out_s,
+              long long* __restrict__ out_i) {
+  constexpr int kMergeWarps = kMergeThreads / 32;
+  __shared__ float ws[kMergeWarps][kMaxTopK];
+  __shared__ int wi[kMergeWarps][kMaxTopK];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t base = (size_t)blockIdx.x * lists * k;
+  const int n = lists * k;
+  float ls = -INFINITY;
+  int li = kNoRow;
+  for (int i0 = warp * 32; i0 < n; i0 += kMergeThreads) {
+    const int i = i0 + lane;
+    const bool ok = i < n;
+    const float ts = __shfl_sync(~0u, ls, k - 1);
+    const int ti = __shfl_sync(~0u, li, k - 1);
+    list_offer(ls, li, ok ? cand_s[base + i] : -INFINITY,
+               ok ? cand_i[base + i] : kNoRow, ok, ts, ti, k, lane);
+  }
+  if (lane < k) {
+    ws[warp][lane] = ls;
+    wi[warp][lane] = li;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  ls = -INFINITY;
+  li = kNoRow;
+  for (int w = 0; w < kMergeWarps; ++w) {
+    const bool ok = lane < k;
+    const float ts = __shfl_sync(~0u, ls, k - 1);
+    const int ti = __shfl_sync(~0u, li, k - 1);
+    list_offer(ls, li, ok ? ws[w][lane] : -INFINITY, ok ? wi[w][lane] : kNoRow,
+               ok, ts, ti, k, lane);
+  }
+  if (lane < kk) {
+    out_s[(size_t)blockIdx.x * kk + lane] = ls;
+    out_i[(size_t)blockIdx.x * kk + lane] = row_offset + li;
   }
 }
 
@@ -299,10 +484,10 @@ struct Card {
   int smem_max = 0, n_sm = 0;
 };
 
-template <bool HI, int W, bool VEC>
+template <bool HI, int W, bool VEC, bool TOPK>
 int launch(const Card& card, const float* lut, const uint8_t* codes,
-           float* out, int Q, int M, int K, long long G,
-           cudaStream_t stream) {
+           float* out, int Q, int M, int K, long long G, const Select& sel,
+           Plan* plan, cudaStream_t stream) {
   // subspaces a slab: all M if they fit, else the fewest slabs that fit,
   // of equal size (the more L1 is left beside them), multiples of 16 so
   // that VEC's code loads stay aligned
@@ -318,7 +503,7 @@ int launch(const Card& card, const float* lut, const uint8_t* codes,
     ms = M;
   }
   const size_t smem = (size_t)ms * per_m;
-  auto kern = pq_adc_kernel<HI, W, VEC>;
+  auto kern = pq_adc_kernel<HI, W, VEC, TOPK>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -331,48 +516,60 @@ int launch(const Card& card, const float* lut, const uint8_t* codes,
   const long long need = (G + rows - 1) / rows;
   const long long fill = (long long)card.n_sm * per_sm;
   const int grid = (int)(need < fill ? need : fill);
+  const int part_rows = Q < W ? Q : W;
+  if (plan) {  // the fused top-k's sizes, nothing launched
+    plan->part_rows = part_rows;
+    plan->lists = grid * kWarps;
+    return 0;
+  }
+  // the fused top-k: the buffers its plan asked for
+  if (TOPK && (sel.lists != grid * kWarps || sel.part_rows < part_rows))
+    return (int)cudaErrorInvalidValue;
   const bool vec_lut = K % 4 == 0 && (uintptr_t)lut % 16 == 0;
   kern<<<grid, kThreads, smem, stream>>>(lut, codes, out, Q, M, K, G, ms,
-                                         vec_lut);
+                                         vec_lut, sel);
   return (int)cudaGetLastError();
 }
 
-template <bool HI, int W>
+template <bool HI, int W, bool TOPK>
 int launch_vec(const Card& card, bool vec, const float* lut,
                const uint8_t* codes, float* out, int Q, int M, int K,
-               long long G, cudaStream_t s) {
-  return vec ? launch<HI, W, true>(card, lut, codes, out, Q, M, K, G, s)
-             : launch<HI, W, false>(card, lut, codes, out, Q, M, K, G, s);
+               long long G, const Select& sel, Plan* plan, cudaStream_t s) {
+  return vec ? launch<HI, W, true, TOPK>(card, lut, codes, out, Q, M, K, G,
+                                         sel, plan, s)
+             : launch<HI, W, false, TOPK>(card, lut, codes, out, Q, M, K, G,
+                                          sel, plan, s);
 }
 
 // W: the least power of two >= Q, at most MaxW
-template <bool HI, int MaxW>
+template <bool HI, int MaxW, bool TOPK>
 int launch_mode(const Card& card, bool vec, const float* lut,
                 const uint8_t* codes, float* out, int Q, int M, int K,
-                long long G, cudaStream_t s) {
+                long long G, const Select& sel, Plan* plan, cudaStream_t s) {
   const int want = Q;
   if constexpr (MaxW >= 8) {
     if (want > 4)
-      return launch_vec<HI, 8>(card, vec, lut, codes, out, Q, M, K, G, s);
+      return launch_vec<HI, 8, TOPK>(card, vec, lut, codes, out, Q, M, K, G,
+                                     sel, plan, s);
   }
   if constexpr (MaxW >= 4) {
     if (want > 2)
-      return launch_vec<HI, 4>(card, vec, lut, codes, out, Q, M, K, G, s);
+      return launch_vec<HI, 4, TOPK>(card, vec, lut, codes, out, Q, M, K, G,
+                                     sel, plan, s);
   }
   if constexpr (MaxW >= 2) {
     if (want > 1)
-      return launch_vec<HI, 2>(card, vec, lut, codes, out, Q, M, K, G, s);
+      return launch_vec<HI, 2, TOPK>(card, vec, lut, codes, out, Q, M, K, G,
+                                     sel, plan, s);
   }
-  return launch_vec<HI, 1>(card, vec, lut, codes, out, Q, M, K, G, s);
+  return launch_vec<HI, 1, TOPK>(card, vec, lut, codes, out, Q, M, K, G, sel,
+                                 plan, s);
 }
 
-}  // namespace
-
-// Returns 0 or the CUDA error.
-extern "C" int pq_adc_launch(const void* lut, const void* codes, void* out,
-                             int Q, int M, int K, long long G, int hi,
-                             void* stream) {
-  if (Q <= 0 || G <= 0) return 0;
+template <bool TOPK>
+int launch_any(const void* lut, const void* codes, void* out, int Q, int M,
+               int K, long long G, int hi, const Select& sel, Plan* plan,
+               void* stream) {
   Card card;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -385,6 +582,69 @@ extern "C" int pq_adc_launch(const void* lut, const void* codes, void* out,
   const uint8_t* c = (const uint8_t*)codes;
   float* o = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
-  if (hi) return launch_mode<true, kHiMaxW>(card, vec, l, c, o, Q, M, K, G, s);
-  return launch_mode<false, kLoMaxW>(card, vec, l, c, o, Q, M, K, G, s);
+  if (hi)
+    return launch_mode<true, kHiMaxW, TOPK>(card, vec, l, c, o, Q, M, K, G,
+                                            sel, plan, s);
+  return launch_mode<false, kLoMaxW, TOPK>(card, vec, l, c, o, Q, M, K, G,
+                                           sel, plan, s);
+}
+
+}  // namespace
+
+// Returns 0 or the CUDA error.
+extern "C" int pq_adc_launch(const void* lut, const void* codes, void* out,
+                             int Q, int M, int K, long long G, int hi,
+                             void* stream) {
+  if (Q <= 0 || G <= 0) return 0;
+  return launch_any<false>(lut, codes, out, Q, M, K, G, hi, Select{}, nullptr,
+                           stream);
+}
+
+// The fused top-k's sizes for (Q, M, K, G, hi) and these codes: the rows
+// of the partial sums' scratch (min(Q, W)) and the lists a query gets (a
+// warp of the grid each), as pq_adc_topk_launch will use them. Nothing
+// is launched.
+extern "C" int pq_adc_topk_sizes(const void* codes, int Q, int M, int K,
+                                 long long G, int hi, int* part_rows,
+                                 int* lists) {
+  Plan plan;
+  const int rc = Q <= 0 || G <= 0 ? 0
+      : launch_any<true>(nullptr, codes, nullptr, Q, M, K, G, hi, Select{},
+                         &plan, nullptr);
+  *part_rows = plan.part_rows;
+  *lists = plan.lists;
+  return rc;
+}
+
+// The fused top-k's scoring pass: K2 with the selection in its final
+// slab. part: (part_rows, G) f32 scratch; valid: (G,) u8; cand_s /
+// cand_i: (Q, lists, k), with part_rows and lists from
+// pq_adc_topk_sizes; G < 2^31, 1 <= k <= 32.
+extern "C" int pq_adc_topk_launch(const void* lut, const void* codes,
+                                  const void* valid, void* part,
+                                  int part_rows, void* cand_s, void* cand_i,
+                                  int Q, int M, int K, long long G, int hi,
+                                  int k, int lists, void* stream) {
+  if (Q <= 0 || G <= 0) return 0;
+  if (k < 1 || k > kMaxTopK || G >= (long long)kNoRow)
+    return (int)cudaErrorInvalidValue;
+  const Select sel{(const uint8_t*)valid, (float*)cand_s, (int*)cand_i, k,
+                   lists, part_rows};
+  return launch_any<true>(lut, codes, part, Q, M, K, G, hi, sel, nullptr,
+                          stream);
+}
+
+// The fused top-k's merge: (Q, lists, k) candidates -> out_s (Q, kk) f32,
+// out_i (Q, kk) i64 (rows + row_offset); kk <= k, and at most the rows
+// scored.
+extern "C" int pq_topk_merge_launch(const void* cand_s, const void* cand_i,
+                                    int Q, int lists, int k, int kk,
+                                    long long row_offset, void* out_s,
+                                    void* out_i, void* stream) {
+  if (Q <= 0 || kk <= 0) return 0;
+  if (k < 1 || k > kMaxTopK || kk > k) return (int)cudaErrorInvalidValue;
+  pq_topk_merge<<<Q, kMergeThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)cand_s, (const int*)cand_i, lists, k, kk, row_offset,
+      (float*)out_s, (long long*)out_i);
+  return (int)cudaGetLastError();
 }

@@ -30,9 +30,9 @@ import torch
 
 from ..device import full_f32_matmul, on_device, resolve_device
 from ..parallel.mesh import Mesh, Slot
-from ..parallel.sharded_gallery import RowShards, local_top_k, merge_top_k
+from ..parallel.sharded_gallery import RowShards, merge_top_k
 from ..stages import span, stage
-from .pq_adc import adc_scores_plain, pq_adc_scores
+from .pq_adc import adc_candidates, adc_scores_plain, merge_candidates
 
 
 @dataclasses.dataclass
@@ -180,7 +180,12 @@ def sharded_pq_top_k(queries, codec: PQCodec, codes: RowShards, k: int,
     the shard's codes; invalid rows -> -inf, a local stable top-k with
     global rows, then the merge in shard order on the codec's device
     (ties rank the lower global row first, as the JAX package's tiled
-    all_gather + top_k). One shard is the unsharded search."""
+    all_gather + top_k). One shard is the unsharded search.
+
+    On the card, for k <= ``pq_adc.KMAX``, the mask and the top-k are
+    fused into K2 (``adc_candidates``: K2 selects as it scores and keeps
+    no (Q, rows) scores; ``merge_candidates`` merges its lists); a larger
+    k scores the whole shard and sorts it."""
     with stage("pq_lut"):
         lut = codec.lut(queries)
     luts = {}
@@ -190,10 +195,9 @@ def sharded_pq_top_k(queries, codec: PQCodec, codes: RowShards, k: int,
             luts[c.device] = lut.to(c.device)
         with on_device(c.device):
             with stage("pq_adc"):
-                scores = pq_adc_scores(luts[c.device], c, precision)
+                shard = adc_candidates(luts[c.device], c, v, k, precision)
             with stage("pq_topk"):
-                scores = torch.where(v[None], scores, -torch.inf)
-                cands.append(local_top_k(scores, k, s, codes.per))
+                cands.append(merge_candidates(shard, s * codes.per))
     with stage("pq_topk"):
         return merge_top_k(cands, k, lut.device)
 
@@ -356,10 +360,12 @@ class PQGallery:
         score 0 where fewer than k valid rows exist.
 
         lut -> K2 -> mask -> top-k on the device (``sharded_pq_top_k``, K2
-        once a shard); ties rank the lower slot first and NaN scores (from
-        a non-finite query) first, as ``lax.top_k`` ranks them. rerank > 0
-        (requires keep_exact=True): the ADC pass shortlists max(k, rerank)
-        candidates and exact host inner products re-order them.
+        once a shard, the top-k fused into it for k, or the shortlist, up
+        to ``pq_adc.KMAX``); ties rank the lower slot first and NaN scores
+        (from a non-finite query) first, as ``lax.top_k`` ranks them.
+        rerank > 0 (requires keep_exact=True): the ADC pass shortlists
+        max(k, rerank) candidates and exact host inner products re-order
+        them.
 
         precision: the ADC pass's LUT, "hilo" (exact f32) or "hi" (bf16);
         default "hi" when an exact rerank follows, "hilo" otherwise.

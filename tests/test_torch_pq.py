@@ -338,7 +338,8 @@ def test_sharded_pq_gallery_matches_jax_and_unsharded(codecs, adc_impl,
 def test_sharded_pq_launches_k2_once_a_shard_and_merges_ties_in_order(
         codecs, monkeypatch):
     """Rows with the same codes in three shards rank in global-row order;
-    the ADC scorer runs once a shard a search, on the shard's codes."""
+    the ADC scorer, with its top-k fused in (``adc_candidates``), runs
+    once a shard a search, on the shard's codes."""
     _, tc, corpus = codecs
     _, tm = _meshes(4)
     g = tpq.PQGallery(tc, capacity=16, device="cpu", mesh=tm)
@@ -348,13 +349,13 @@ def test_sharded_pq_launches_k2_once_a_shard_and_merges_ties_in_order(
     for x in (g, flat):
         x.add(np.arange(16) + 100, rows)
     seen = []
-    real = tpq.pq_adc_scores
+    real = tpq.adc_candidates
 
-    def counted(lut, codes, precision="hilo"):
+    def counted(lut, codes, valid, k, precision="hilo"):
         seen.append(codes.shape[0])
-        return real(lut, codes, precision)
+        return real(lut, codes, valid, k, precision)
 
-    monkeypatch.setattr(tpq, "pq_adc_scores", counted)
+    monkeypatch.setattr(tpq, "adc_candidates", counted)
     s, i = g.search(rows[3:4], k=3)
     assert seen == [4, 4, 4, 4]
     assert i.tolist() == [[103, 109, 114]] and s[0, 0] == s[0, 2]

@@ -266,7 +266,7 @@ def _phase12_on_the_cpu(monkeypatch):
 
     monkeypatch.setattr(chip_smoke, "DEV", "cpu")
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    crops, scores = ops.warp_align_crops, pq.pq_adc_scores
+    crops, scores = ops.warp_align_crops, pq.adc_candidates
 
     def counted_crops(*a, **k):
         wa.launches += 1
@@ -277,7 +277,7 @@ def _phase12_on_the_cpu(monkeypatch):
         return scores(*a, **k)
 
     monkeypatch.setattr(ops, "warp_align_crops", counted_crops)
-    monkeypatch.setattr(pq, "pq_adc_scores", counted_scores)
+    monkeypatch.setattr(pq, "adc_candidates", counted_scores)
     monkeypatch.setattr(chip_smoke, "FACADE", dict(
         det="det_500m", rec="w600k_mbf", det_size=(128, 128), max_det=2,
         static=(8, 64, 96), stream=(8, 96, 64),
@@ -367,6 +367,25 @@ def test_phase12_holds_k2_to_its_plain_version_on_the_searches(monkeypatch):
     monkeypatch.setattr(pq_adc, "pq_adc_scores",
                         lambda lut, codes, p: plain(lut, codes, p) * 1.01)
     with pytest.raises(RuntimeError, match="pq_adc .*max abs err"):
+        chip_smoke.phase_engine_pq(torch, rep)
+
+
+def test_phase12_holds_the_fused_topk_to_the_chain_on_the_searches(
+        monkeypatch):
+    """Every PQ-tier search's inputs, as phase 12 captures them: a fused
+    top-k that ranks two tied rows the other way round fails the phase."""
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import pq_adc
+
+    rep, _ = _phase12_on_the_cpu(monkeypatch)
+    fused = pq_adc.pq_adc_topk
+
+    def swapped(*a, **k):
+        s, i = fused(*a, **k)
+        return s, i.flip(-1)
+
+    monkeypatch.setattr(pq_adc, "pq_adc_topk", swapped)
+    with pytest.raises(RuntimeError, match=r"engine on the PQ tier: the "
+                                           r"fused top-k \(hi, k=32\)"):
         chip_smoke.phase_engine_pq(torch, rep)
 
 
@@ -1276,7 +1295,7 @@ def _parallel_phase_on_the_cpu(monkeypatch, k1_step=1, k2_step=1):
         disagg=dict(batches=2)))
     monkeypatch.setattr(disagg, "card_slots",
                         lambda: [Slot(0, torch.device("cpu"))])
-    crops, scores = ops.warp_align_crops, tpq.pq_adc_scores
+    crops, scores = ops.warp_align_crops, tpq.adc_candidates
 
     def counted_k1(*a, **k):
         wa.launches += k1_step
@@ -1287,7 +1306,7 @@ def _parallel_phase_on_the_cpu(monkeypatch, k1_step=1, k2_step=1):
         return scores(*a, **k)
 
     monkeypatch.setattr(ops, "warp_align_crops", counted_k1)
-    monkeypatch.setattr(tpq, "pq_adc_scores", counted_k2)
+    monkeypatch.setattr(tpq, "adc_candidates", counted_k2)
     rng = np.random.default_rng(0)
     rows, _, _ = chip_smoke.identity_rows(rng, 400, 40, 512, 0.05)
     ag = AutoGallery(vector_size=512, tier="pq", min_train_rows=64,
@@ -1549,11 +1568,13 @@ def _gallery_scale_on_the_cpu(monkeypatch):
         wide=dict(g=9000, q=8, precision="hi"),
         sync_rows=(1500,), async_rows=1500,
         merge=dict(g=4000, dups=20, threshold=0.95),
-        budget=dict(rows=2048, queries=32)))
+        budget=dict(rows=2048, queries=32),
+        fused=dict(g=6000, identities=600, changed=1 / 32, q=8, k=5,
+                   precision="hilo", noise=0.3)))
     monkeypatch.setattr(exp_pq_scale, "CODEC_TRAIN_ROWS", 2000)
     monkeypatch.setattr(exp_train_budget, "LADDER",
                         ((1024, 3), (50_000, 10)))
-    train, scores = tpq.PQCodec.train, tpq.pq_adc_scores
+    train, scores = tpq.PQCodec.train, tpq.adc_candidates
 
     def short_train(emb, *a, iters=20, **k):
         return train(emb[:2000], *a, iters=min(iters, 10), **k)
@@ -1563,7 +1584,7 @@ def _gallery_scale_on_the_cpu(monkeypatch):
         return scores(*a, **k)
 
     monkeypatch.setattr(tpq.PQCodec, "train", staticmethod(short_train))
-    monkeypatch.setattr(tpq, "pq_adc_scores", counted)
+    monkeypatch.setattr(tpq, "adc_candidates", counted)
     return rep, said
 
 
@@ -1597,6 +1618,37 @@ def test_gallery_scale_phase_rehearsed_on_the_cpu(monkeypatch):
                   "23d {\"train_rows\": 50000, \"iters\": 10",
                   "phase 23 took"):
         assert start in text, start
+
+
+def test_gallery_scale_phase_holds_the_lookup_shape_to_the_plain_chain(
+        monkeypatch):
+    """23e at the cell's shape: K2 one ulp off its plain version at one
+    score fails it, and so does a fused top-k that orders its winners
+    otherwise than the plain chain."""
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import pq_adc
+
+    rep, _ = _gallery_scale_on_the_cpu(monkeypatch)
+    plain, fused = pq_adc.adc_scores_plain, pq_adc.pq_adc_topk
+
+    def off_by_an_ulp(lut, codes, precision="hilo"):
+        out = plain(lut, codes, precision)
+        out[0, 3] = torch.nextafter(out[0, 3], torch.tensor(np.inf))
+        return out
+
+    def swapped(*a, **k):
+        s, i = fused(*a, **k)
+        return s, i.flip(-1)
+
+    with monkeypatch.context() as m:
+        m.setattr(pq_adc, "pq_adc_scores", off_by_an_ulp)
+        with pytest.raises(RuntimeError, match=r"23e K2 \(hilo\) differs "
+                                               r"from its plain version"):
+            chip_smoke.scale_fused(torch, rep)
+    monkeypatch.setattr(pq_adc, "pq_adc_topk", swapped)
+    with pytest.raises(RuntimeError, match=r"23e: the fused top-k \(hilo, "
+                                           r"k=5\) differs from the plain "
+                                           r"chain"):
+        chip_smoke.scale_fused(torch, rep)
 
 
 def test_gallery_scale_phase_fails_on_a_k2_that_differs(monkeypatch):
@@ -2239,3 +2291,25 @@ def test_kernel_rows_list_the_kernels_whose_timing_phase_ran():
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert set(rows[0]) == keys
+
+
+def test_kernel_rows_give_k2_the_fused_topk_when_phase_23_ran():
+    """K2's row takes the fused top-k's times and its own bound from
+    phase 23 (23e), beside K2's own from phase 7; without phase 23 it has
+    none."""
+    from scrfd_arcface_facerecognition_tpu_torch.gallery import pq_adc
+    from scrfd_arcface_facerecognition_tpu_torch.ops import warp_align as wa
+
+    t = dict(ms=1.0, plain_ms=2.0, bound_ms=0.5, bound_by="bytes",
+             library_ms=3.0)
+    shape = dict(q=64, g=10_000_000, k=5, precision="hilo")
+    topk = dict(ms=15.0, plain_ms=90.0, bound_ms=0.6,
+                bound_by="operations", library_ms=52.0, shape=shape)
+    r = {7: dict(launches=6, err=0.0, times=t),
+         23: dict(launches=3, err=0.0, topk=topk)}
+    rows = chip_smoke.kernel_rows(torch, wa, pq_adc, r)
+    assert [k["name"] for k in rows] == [pq_adc.NAME]
+    assert rows[0]["launches"] == 9 and rows[0]["bound_ms"] == 0.5
+    assert rows[0]["topk"] == topk
+    del r[23]
+    assert "topk" not in chip_smoke.kernel_rows(torch, wa, pq_adc, r)[0]
