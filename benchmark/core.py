@@ -3,9 +3,11 @@ statistics and the result line.
 
 A cell of ``BENCHMARK.json`` names a configuration and a traffic mix; both
 are found by name (``configs/<config>.json``, ``traffic/<traffic>.json``),
-the traffic's ``kind`` picks its driver (``drivers/<kind>.py``) and every
-per-layer metric is read by ``metrics/<name>.py``. A new cell, mix,
-configuration or metric is a new file and an entry, never an edit.
+the traffic's ``kind`` picks its driver (``drivers/<kind>.py``), each
+model entry of the configuration its family's reference
+(``reference/models/<family>.py``), and every per-layer metric is read by
+``metrics/<name>.py``. A new cell, mix, configuration, model family or
+metric is a new file and an entry, never an edit.
 """
 from __future__ import annotations
 
@@ -71,6 +73,32 @@ def driver(kind: str):
 def reader(metric: str):
     return load_module(HERE / "metrics" / f"{metric}.py",
                        "benchmark_metric_" + metric.replace(".", "_"))
+
+
+def family_file(name: str) -> Path:
+    return HERE / "reference" / "models" / f"{name}.py"
+
+
+_family_modules: Dict[Path, object] = {}
+
+
+def family(name: str):
+    """The reference module of a model family (``reference/standins.py``
+    says what it holds), loaded once a path; SystemExit, naming the path,
+    where it has no file."""
+    path = family_file(name)
+    if path not in _family_modules:
+        if not path.is_file():
+            raise SystemExit(f"no model family {name!r}: expected {path}")
+        _family_modules[path] = load_module(path, f"benchmark_family_{name}")
+    return _family_modules[path]
+
+
+def model_entries(config: dict) -> Dict[str, dict]:
+    """The configuration's model entries: its values that name a
+    ``family``."""
+    return {k: v for k, v in config.items()
+            if isinstance(v, dict) and "family" in v}
 
 
 def end_to_end_for(spec: dict, cell_name: str) -> List[dict]:

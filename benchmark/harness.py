@@ -28,9 +28,13 @@ class Context:
 
 def context(spec: dict, cell_name: str, seed: int, seconds: float,
             trace: bool, device, started: float) -> Context:
+    """The cell's names resolved to their files; a model family with no
+    file stops the run here, before anything is drawn."""
     w = core.cell(spec, cell_name)
-    return Context(cell=cell_name,
-                   config=core.read_json(core.config_file(w["config"])),
+    config = core.read_json(core.config_file(w["config"]))
+    for entry in core.model_entries(config).values():
+        core.family(entry["family"])
+    return Context(cell=cell_name, config=config,
                    traffic=core.read_json(core.traffic_file(w["traffic"])),
                    seed=seed, seconds=seconds, trace=trace, device=device,
                    started=started)

@@ -24,13 +24,17 @@ def card():
 
 def small(ctx):
     """A cell's context cut to a size the CPU runs in seconds: few small
-    frames, and models one block a stage deep at their widths."""
+    frames, and models as their families cut them (``small``: one block a
+    stage deep at their widths)."""
+    from benchmark import core
+    from benchmark.reference import standins
+
+    for part, entry in core.model_entries(ctx.config).items():
+        ctx.config[part] = standins.small(entry)
     if ctx.traffic["kind"] == "stream":
         ctx.traffic.update(frames=2, height=96, width=160, pool=2,
                            gallery_rows=16, gallery_near=8, calib_frames=2,
                            judge_share=1.0, trace_seconds=0.5)
-        for part in ("detector", "embedder"):
-            ctx.config[part]["blocks"] = [1] * len(ctx.config[part]["blocks"])
     else:
         ctx.traffic.update(rows=40_000, identities=4_000, queries=8, pool=3,
                            trace_seconds=0.5)

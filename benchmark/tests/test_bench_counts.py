@@ -85,3 +85,18 @@ def test_model_flops_equal_a_count_by_layer_shapes(spec, chw):
     model = architecture(spec).eval().requires_grad_(False)
     want = hand_flops(model, torch.zeros((1, *chw)))
     assert counts.model_flops(spec, chw) == pytest.approx(want)
+
+
+# buffalo_l's models on the card cell's shapes, as counted on the tree
+# before the families had files of their own (e7ac93b)
+RECORDED_FLOPS = {"detector": ((3, 384, 640), 15_449_226_240),
+                  "embedder": ((3, 112, 112), 12_618_661_888)}
+
+
+@pytest.mark.parametrize("part", sorted(RECORDED_FLOPS))
+def test_model_flops_of_buffalo_l_are_the_recorded_counts(part):
+    from benchmark import core
+
+    chw, want = RECORDED_FLOPS[part]
+    spec = core.read_json(core.config_file("buffalo_l"))[part]
+    assert counts.model_flops(spec, chw) == want

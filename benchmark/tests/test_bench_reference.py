@@ -2,6 +2,7 @@
 repository's stand-ins, and each of its stages against a hand case."""
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import json
 import subprocess
@@ -33,6 +34,8 @@ from benchmark.drivers import stream, lookup
 from benchmark.reference import align, detect, pq, precision, standins
 for f in sorted(Path(core.HERE, "metrics").glob("*.py")):
     core.reader(f.stem)
+for f in sorted(Path(core.HERE, "reference", "models").glob("*.py")):
+    core.family(f.stem)
 import {PORT}.pipeline, {PORT}.gallery.pq, {PORT}.stages
 import {PORT}.models.config_from_graph
 print(json.dumps([core.forbidden_loaded(),
@@ -73,9 +76,7 @@ def test_frozen_architectures_are_the_stand_ins(part):
     te = torch_export()
     with torch.device("meta"):
         want = te.STAND_INS[spec["variant"]]().state_dict()
-        helper = (standins.TorchSCRFD() if part == "detector"
-                  else standins.architecture(spec))
-        got = helper.state_dict()
+        got = core.family(spec["family"]).MODULE().state_dict()
         configured = standins.architecture(spec)
     assert list(got) == list(want)
     assert all(got[k].shape == want[k].shape for k in want)
@@ -86,36 +87,105 @@ def test_frozen_architectures_are_the_stand_ins(part):
             spec["planes"]
 
 
+FAMILIES = sorted(p.stem for p in
+                  (core.HERE / "reference" / "models").glob("*.py"))
+# an input of each model entry of a configuration: a detector's canvas, an
+# embedder's aligned crop
+INPUTS = {"detector": (2, 3, 64, 96), "embedder": (2, 3, 112, 112)}
+# hand-sized cases, a stage of two blocks in each, so that every kind of
+# block runs (iResNet's identity shortcut among them): the sizes, the
+# input, and the function that prepares both sides after the stand-in's
+# seeding, named alike in ``tests/torch_export.py`` and the family's file
 SMALL = {
     "scrfd": (dict(stem=8, blocks=(1, 2, 1, 1), planes=(8, 8, 16, 16),
                    neck=8, head_feat=16, head_stacks=2, gn_groups=4),
-              (2, 3, 64, 96)),
+              (2, 3, 64, 96), "calibrate_detector"),
     "iresnet": (dict(blocks=(1, 1, 2, 1), planes=(4, 8, 8, 16), emb=16),
-                (2, 3, 112, 112)),
+                (2, 3, 112, 112), None),
 }
-CLASSES = {"scrfd": "TorchSCRFD", "iresnet": "TorchIResNet"}
 
 
-@pytest.mark.parametrize("family", sorted(SMALL))
-def test_frozen_copy_computes_what_the_stand_in_computes(family):
-    """At a small size, the stand-in seeded and (for detectors) calibrated
-    as ``tests/torch_export.py`` does, and the frozen copy given the same
-    weights: the same outputs, bit for bit. The frozen copy draws its own
-    weights on the device in three calls (``seed_weights_``), not leaf by
-    leaf on the host as the test helper does, so the seeds' draws differ."""
-    te = torch_export()
-    kw, shape = SMALL[family]
-    ref = te.seeded(getattr(te, CLASSES[family])(**kw), seed=7)
-    ours = getattr(standins, CLASSES[family])(**kw)
-    ours.load_state_dict(ref.state_dict())
-    if family == "scrfd":
-        te.calibrate_detector(ref)
-        standins.calibrate_detector(ours)
+def family_entries(name):
+    """(model entry, input shape) of each configuration's entries that
+    name the family ``name``, cut to its ``small`` size."""
+    out = []
+    for path in sorted((core.HERE / "configs").glob("*.json")):
+        for part, entry in core.model_entries(core.read_json(path)).items():
+            if entry["family"] == name:
+                out.append((standins.small(entry), INPUTS[part]))
+    return out
+
+
+def same_outputs(ref, ours, shape):
     x = torch.randn(shape, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         a, b = ref.eval()(x), ours.eval()(x)
     a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    assert len(a) == len(b)
     assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert all(bool(torch.isfinite(v).all()) for v in b)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_frozen_copy_computes_what_the_stand_in_computes(family):
+    """The repository's stand-in of the family's class name
+    (``tests/torch_export.py``) and the frozen copy, given the same
+    weights: the same outputs, bit for bit. At the hand-sized case, the
+    stand-in seeded and prepared as the test helper does it, and the
+    frozen copy prepared by its own file's function of the same name; at
+    each configuration's entry of the family cut to its ``small`` size,
+    the frozen copy built and prepared from a seed (``standins.build``).
+    A family with no stand-in has nothing here to be held to: it needs a
+    check of its own, against a case worked out apart from its file."""
+    te = torch_export()
+    fam = core.family(family)
+    stand_in = getattr(te, fam.MODULE.__name__, None)
+    if stand_in is None:
+        pytest.skip(f"no stand-in {fam.MODULE.__name__} in "
+                    "tests/torch_export.py: the family needs a test of its "
+                    "own against an independently computed case")
+    cases = family_entries(family)
+    assert cases, f"no configuration names the family {family!r}"
+    for spec, shape in cases:
+        ours = standins.build(spec, 2 ** 31 + 7, "cpu")
+        ref = stand_in(**standins.sizes(spec))
+        ref.load_state_dict(ours.state_dict())
+        same_outputs(ref, ours, shape)
+    if family in SMALL:
+        kw, shape, prepare = SMALL[family]
+        ref = te.seeded(stand_in(**kw), seed=7)
+        ours = fam.MODULE(**kw)
+        ours.load_state_dict(ref.state_dict())
+        if prepare is not None:
+            getattr(te, prepare)(ref)
+            getattr(fam, prepare)(ours)
+        same_outputs(ref, ours, shape)
+
+
+# sha256 of ``standins.build(spec, seed, "cpu").state_dict()`` (each name,
+# then its tensor's bytes, in order) for buffalo_l's entries one block a
+# stage deep, as recorded on the tree before the families had files of
+# their own (e7ac93b): the move keeps every seeded weight bit for bit
+BUILT = {
+    ("detector", 2 ** 40 + 9):
+        "58f1085a2471fcce06fc1348967192a36834bc90698aac5a48f22e6d86f6f41c",
+    ("detector", 2 ** 31 + 5):
+        "fbf2c19d7c8358371e249b5c8a15a1e3fe79fc9e520e7b07705b991ce2f57604",
+    ("embedder", 2 ** 40 + 9):
+        "350c363a1d6320e3134f8aceed0d9601375a0c84bd8ebb303f813a3cf505ed06",
+    ("embedder", 2 ** 31 + 5):
+        "44460591de93a1ff98b87370e97a79751b20bebc6ad7439be9111a6c0d40917c",
+}
+
+
+@pytest.mark.parametrize("part, seed", sorted(BUILT))
+def test_build_draws_the_recorded_weights(part, seed):
+    spec = standins.small(core.read_json(core.config_file("buffalo_l"))[part])
+    h = hashlib.sha256()
+    for name, t in standins.build(spec, seed, "cpu").state_dict().items():
+        h.update(name.encode())
+        h.update(t.contiguous().numpy().tobytes())
+    assert h.hexdigest() == BUILT[(part, seed)]
 
 
 def test_calibrated_norms_are_the_inputs_statistics():

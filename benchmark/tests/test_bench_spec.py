@@ -9,7 +9,8 @@ import time
 
 import pytest
 
-from benchmark import core, harness
+from benchmark import core, counts, harness
+from benchmark.reference import standins
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -93,19 +94,20 @@ def test_each_cell_reports_setup_another_metric_and_a_layer(cell):
     assert layers and all(m["moves"] in e2e for m in layers)
 
 
-def test_a_cell_of_new_files_and_an_entry_is_picked_up(tmp_path,
-                                                       monkeypatch):
-    """A configuration, a mix, its limits and a per-layer metric added as
-    files, the cell as an entry: the harness runs it and reads the
-    metric, no file edited."""
-    import torch
-
+def tiny_cell(tmp_path, monkeypatch, edit=None):
+    """The benchmark copied into a checkout and the harness pointed at it,
+    with ``tiny.stream_tiny`` added as files and an entry: configuration
+    ``tiny`` (``buffalo_l``'s models as their families cut them, then
+    ``edit``), a tiny stream mix and its limits. Returns the copy's folder
+    and the spec."""
     root = tmp_path / "checkout"
     shutil.copytree(core.HERE, root / "benchmark")
     base = root / "benchmark"
     cfg = core.read_json(core.config_file("buffalo_l"))
-    for part in ("detector", "embedder"):
-        cfg[part]["blocks"] = [1] * len(cfg[part]["blocks"])
+    for part, entry in core.model_entries(cfg).items():
+        cfg[part] = standins.small(entry)
+    if edit is not None:
+        edit(cfg)
     (base / "configs" / "tiny.json").write_text(json.dumps(cfg))
     mix = core.read_json(core.traffic_file("stream_1080p_card"))
     mix.update(frames=2, height=72, width=128, pool=2, gallery_rows=8,
@@ -114,8 +116,6 @@ def test_a_cell_of_new_files_and_an_entry_is_picked_up(tmp_path,
     (base / "traffic" / "stream_tiny.json").write_text(json.dumps(mix))
     (base / "limits" / "tiny.stream_tiny.json").write_text(
         (base / "limits" / "buffalo_l.stream_1080p_card.json").read_text())
-    (base / "metrics" / "frames_seen.tiny.py").write_text(
-        "def read(data):\n    return float(data['frames'])\n")
     spec = json.loads(json.dumps(SPEC))
     spec["workloads"].append({"name": "tiny.stream_tiny",
                               "config": "tiny", "traffic": "stream_tiny",
@@ -123,14 +123,63 @@ def test_a_cell_of_new_files_and_an_entry_is_picked_up(tmp_path,
     for m in spec["end_to_end"]:
         if m["name"] == "frames_per_s":
             m["workloads"].append("tiny.stream_tiny")
+    monkeypatch.setattr(core, "HERE", base)
+    return base, spec
+
+
+def run_tiny(spec, trace=True):
+    import torch
+
+    ctx = harness.context(spec, "tiny.stream_tiny", 2 ** 40 + 3, 0.5,
+                          trace, torch.device("cpu"), time.perf_counter())
+    return harness.run_cell(spec, ctx)
+
+
+def test_a_cell_of_new_files_and_an_entry_is_picked_up(tmp_path,
+                                                       monkeypatch):
+    """A configuration, a mix, its limits and a per-layer metric added as
+    files, the cell as an entry: the harness runs it and reads the
+    metric, no file edited."""
+    base, spec = tiny_cell(tmp_path, monkeypatch)
+    (base / "metrics" / "frames_seen.tiny.py").write_text(
+        "def read(data):\n    return float(data['frames'])\n")
     spec["per_layer"].append({"name": "frames_seen.tiny", "unit": "frames",
                               "better": "higher", "source": "host_clock",
                               "layer": "device", "moves": "frames_per_s",
                               "workloads": ["tiny.stream_tiny"]})
-    monkeypatch.setattr(core, "HERE", base)
-    ctx = harness.context(spec, "tiny.stream_tiny", 2 ** 40 + 3, 0.5,
-                          True, torch.device("cpu"), time.perf_counter())
-    out = harness.run_cell(spec, ctx)
+    out = run_tiny(spec)
     assert out["correct"]
     assert out["metrics"]["frames_seen.tiny"]["value"] > 0
     assert "detect_ms.stream" not in out["metrics"]
+
+
+def test_a_model_family_of_a_new_file_is_picked_up(tmp_path, monkeypatch):
+    """An embedder family added as a file (the iResNet family's under
+    another name) and a configuration naming it: the tiny stream cell runs
+    on it, reads correct, and counts the FLOPs of the family it copies,
+    no file of the copy edited."""
+    embedder = core.read_json(core.config_file("buffalo_l"))["embedder"]
+    want = counts.model_flops(standins.small(embedder), (3, 112, 112))
+
+    def rename(cfg):
+        cfg["embedder"]["family"] = "iresnet_again"
+
+    base, spec = tiny_cell(tmp_path, monkeypatch, rename)
+    models = base / "reference" / "models"
+    (models / "iresnet_again.py").write_text(
+        (models / f"{embedder['family']}.py").read_text())
+    out = run_tiny(spec)
+    assert out["correct"], out["checks"]
+    assert out["data"]["rec_flops"] == want
+
+
+def test_a_model_family_without_a_file_stops_at_set_up(tmp_path,
+                                                       monkeypatch):
+    def rename(cfg):
+        cfg["embedder"]["family"] = "no_such_family"
+
+    base, spec = tiny_cell(tmp_path, monkeypatch, rename)
+    with pytest.raises(SystemExit) as got:
+        run_tiny(spec, trace=False)
+    assert str(base / "reference" / "models" / "no_such_family.py") in \
+        str(got.value)
